@@ -12,21 +12,33 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    register/spill report;
 3. kernels: each kernel at the serving path's shapes for Qwen2.5-14B
    (bf16, and float32 for correctness), held against its plain PyTorch
-   version (exact for writes and copies; 2e-3 bf16 / 3e-5 f32 for the
-   attention kernels; the block copies on pools of the serve phase's size,
-   whose byte offsets pass 2**31) and timed with CUDA events: the kernel
-   alone inside a CUDA graph, and, called eagerly, its wrapper, its plain
-   version and one PyTorch library call computing the same function;
-   beside them its bound (bytes over 3.35 TB/s or flops over the peak of
-   the type);
-4. serve: four deep_research apps through the tokencake engine with
+   version (exact for writes, copies and the int8 quantize / dequantize
+   kernels, whose round trip must also land within scale/2; 2e-3 bf16 /
+   3e-5 f32 for the attention kernels; the block migrations on pools of
+   the serve phase's size, whose byte offsets pass 2**31) and timed with
+   CUDA events: the kernel alone inside a CUDA graph, and, called
+   eagerly, its wrapper, its plain version and one PyTorch library call
+   computing the same function where there is one; beside them its bound
+   (bytes over 3.35 TB/s or operations over the peak of their type);
+4. serve fp16: four deep_research apps through the tokencake engine with
    ``TorchBackend`` at Qwen2.5-14B's full width and depth (48 layers,
    random bf16 weights from seed 0), a 2048-block device pool and a
    1024-block pinned host pool; launch counts are zeroed just before and
-   read just after, and every kernel must have run, with at least one
-   offload and no truncated prompt;
-5. check: a small float32 model served on the card gives the same tokens
-   as the same model on the CPU through the kernels' plain versions.
+   read just after, and every kernel of the path (B1-B6) must have run,
+   with at least one offload and no truncated prompt; then the cache's
+   offload and upload of 32 blocks are timed;
+5. serve int8_host: the same apps on the same weights with
+   ``TemporalConfig(kv_precision="int8_host")``: offloads quantize on the
+   card into an int8 pinned host pool, uploads dequantize on the card;
+   B1-B4, B7 and B8 must have run, with at least one offload and one
+   upload and wire bytes in whole int8 blocks; then the same timing;
+6. check: a small float32 model served on the card gives the same tokens
+   and offloads as the same model on the CPU through the kernels' plain
+   versions, with an fp16 and with an int8 host tier.
+
+B11 and B12 (``kv_block_quant`` / ``kv_block_dequant``) run in the kernel
+phase only: no serving path of the JAX package calls them, so their
+launches are those of phase 3.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``. ``--out PATH`` also
@@ -36,6 +48,7 @@ virtual time from the A100 cost model, not card time.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -73,7 +86,30 @@ KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
                             "src/repro/kernels/block_copy.py:41"),
     "block_scatter_layers": ("src/repro_torch/kernels/csrc/block_copy.cu",
                              "src/repro/kernels/block_copy.py:63"),
+    "block_gather_quant_layers": (
+        "src/repro_torch/kernels/csrc/block_quant.cu",
+        "src/repro/kernels/block_copy.py:93"),
+    "block_scatter_dequant_layers": (
+        "src/repro_torch/kernels/csrc/block_quant.cu",
+        "src/repro/kernels/block_copy.py:134"),
+    "kv_block_quant": ("src/repro_torch/kernels/csrc/block_quant.cu",
+                       "src/repro/kernels/kv_write.py:154"),
+    "kv_block_dequant": ("src/repro_torch/kernels/csrc/block_quant.cu",
+                         "src/repro/kernels/kv_write.py:189"),
 }
+
+# the kernels each serve phase must launch
+SERVE_KERNELS = {
+    "fp16": ("kv_token_write", "paged_attention", "kv_chunk_write",
+             "paged_prefill_attention", "block_gather_layers",
+             "block_scatter_layers"),
+    "int8_host": ("kv_token_write", "paged_attention", "kv_chunk_write",
+                  "paged_prefill_attention", "block_gather_quant_layers",
+                  "block_scatter_dequant_layers"),
+}
+# run in the kernel phase only (no serving path calls them)
+KERNEL_PHASE_ONLY = ("kv_block_quant", "kv_block_dequant")
+NO_LIBRARY = "none: no single PyTorch call computes this function"
 
 
 def smi() -> str:
@@ -122,6 +158,8 @@ def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
 
 
 def bound_ms(nbytes: float, flops: float, dt: str):
+    """The larger of bytes over the memory rate and operations over the
+    peak rate of their type (``dt``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -274,6 +312,42 @@ def kernel_cases(dt: str):
         plain=lambda: R.block_scatter_layers_ref(pools, idx, staging),
         library=lambda: pools.index_copy_(1, idx64, staging),
         library_call="index_copy_", nbytes=moved, flops=0.0))
+
+    # B7/B8: the same 32 blocks x 48 layers, quantized on offload and
+    # dequantized on upload; B11/B12 on the same bytes as staged blocks
+    # (1536, 16, 8, 128). Operations are float32 scalar work: |x| and max,
+    # then divide, round and two clamps per element (quantize); convert and
+    # multiply per element (dequantize).
+    elems = LAYERS * M_BLOCKS * BS * HKV * D
+    qbytes = elems * (es + 1) + 4 * LAYERS * M_BLOCKS * HKV
+    sq, ss = R.quantize_block_ref(rand(LAYERS, M_BLOCKS, BS, HKV, D))
+    cases.append(dict(
+        name="block_gather_quant_layers", kind="quant", targets=(),
+        kernel=lambda: ops.block_gather_quant_layers(pools, idx),
+        plain=lambda: R.block_gather_quant_layers_ref(pools, idx),
+        source=lambda: R.block_gather_layers_ref(pools, idx),
+        library=None, library_call=NO_LIBRARY,
+        nbytes=qbytes + 4 * M_BLOCKS, flops=6.0 * elems, ops_dt="f32"))
+    cases.append(dict(
+        name="block_scatter_dequant_layers", kind="scatter", targets=(pools,),
+        kernel=lambda: ops.block_scatter_dequant_layers(pools, idx, sq, ss),
+        plain=lambda: R.block_scatter_dequant_layers_ref(pools, idx, sq, ss),
+        library=None, library_call=NO_LIBRARY,
+        nbytes=qbytes + 4 * M_BLOCKS, flops=2.0 * elems, ops_dt="f32"))
+    blocks = rand(LAYERS * M_BLOCKS, BS, HKV, D)
+    bq, bsc = sq.reshape(blocks.shape), ss.reshape(-1, HKV)
+    cases.append(dict(
+        name="kv_block_quant", kind="quant", targets=(),
+        kernel=lambda: ops.kv_block_quant(blocks),
+        plain=lambda: R.quantize_block_ref(blocks),
+        source=lambda: blocks, library=None, library_call=NO_LIBRARY,
+        nbytes=qbytes, flops=6.0 * elems, ops_dt="f32"))
+    cases.append(dict(
+        name="kv_block_dequant", kind="copy", targets=(),
+        kernel=lambda: ops.kv_block_dequant(bq, bsc, td),
+        plain=lambda: R.dequantize_block_ref(bq, bsc, td),
+        library=None, library_call=NO_LIBRARY,
+        nbytes=qbytes, flops=2.0 * elems, ops_dt="f32"))
     return cases
 
 
@@ -281,9 +355,23 @@ def check_case(case: dict, dt: str) -> float:
     """Kernel and plain version on the same inputs; returns the max abs
     difference and raises if it is outside the tolerance. In-place writes
     start from the same snapshot of their pools; decode-write pools are
-    compared on every page but the scratch page."""
+    compared on every page but the scratch page. Quantizers must give the
+    plain version's payload and scales exactly, and dequantizing their
+    output must land within scale/2 of the source (plus the float32
+    rounding of the quotient and the product, |x| * 2**-24 each)."""
     import torch
+    from repro_torch.kernels import ref as R
 
+    if case["kind"] == "quant":
+        (q, s), (want_q, want_s) = case["kernel"](), case["plain"]()
+        torch.cuda.synchronize()
+        assert torch.equal(q, want_q), f"{case['name']}: payload"
+        assert torch.equal(s, want_s), f"{case['name']}: scales"
+        x = case["source"]().float()
+        err = (R.dequantize_block_ref(q, s) - x).abs()
+        bound = s[..., None, :, None] / 2 + x.abs() * 2.0 ** -22 + 1e-7
+        assert bool((err <= bound).all()), f"{case['name']}: round trip"
+        return 0.0
     if case["kind"] in ("attn", "copy"):
         got, want = case["kernel"](), case["plain"]()
         torch.cuda.synchronize()
@@ -318,17 +406,19 @@ def kernel_phase():
             row[f"max_abs_err_{dt}"] = err
             if dt != "bf16":
                 continue
+            lib = case["library"]
             row.update(
                 ms=graph_ms(case["kernel"]), eager_ms=cuda_ms(case["kernel"]),
                 plain_ms=cuda_ms(case["plain"]),
-                library_ms=cuda_ms(case["library"]),
+                library_ms=cuda_ms(lib) if lib is not None else None,
                 library_call=case["library_call"], nbytes=case["nbytes"],
                 flops=case["flops"])
             row["bound_ms"], row["bound_by"] = bound_ms(
-                case["nbytes"], case["flops"], dt)
-            print(f"  {case['name']:24s} bf16 {row['ms']:.4f} ms  eager "
+                case["nbytes"], case["flops"], case.get("ops_dt", dt))
+            libs = f"{row['library_ms']:.4f}" if lib is not None else "-"
+            print(f"  {case['name']:28s} bf16 {row['ms']:.4f} ms  eager "
                   f"{row['eager_ms']:.4f}  plain {row['plain_ms']:.4f}  "
-                  f"library {row['library_ms']:.4f}"
+                  f"library {libs}"
                   f"  bound {row['bound_ms']:.4f} ({row['bound_by']})  "
                   f"err bf16 {err:.3g} f32 {row['max_abs_err_f32']:.3g}",
                   flush=True)
@@ -336,14 +426,16 @@ def kernel_phase():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve through the engine at Qwen2.5-14B's full size
+# phases 4 and 5: serve through the engine at Qwen2.5-14B's full size
 # ---------------------------------------------------------------------------
 
-def engine_cfg(EngineConfig, TemporalConfig, gpu_blocks, host_blocks):
+def engine_cfg(EngineConfig, TemporalConfig, gpu_blocks, host_blocks,
+               kv_precision):
     return EngineConfig.preset(
         "tokencake", gpu_blocks=gpu_blocks, host_blocks=host_blocks,
         max_running=8,
-        temporal=TemporalConfig(score_threshold=-1.0, pressure_watermark=0.0))
+        temporal=TemporalConfig(score_threshold=-1.0, pressure_watermark=0.0,
+                                kv_precision=kv_precision))
 
 
 def submit(front, build_workload, n_apps, prompt_cap, decode_cap):
@@ -356,7 +448,10 @@ def submit(front, build_workload, n_apps, prompt_cap, decode_cap):
         front.register_graph(g, t)
 
 
-def serve_phase(card: str):
+def serve_phase(card: str, kv_precision: str, params=None):
+    """Serve the four apps with a ``kv_precision`` host tier; ``params``
+    reuses weights already on the card. Returns the phase's results, its
+    launch counts and the backend."""
     import numpy as np
     import torch
 
@@ -371,20 +466,28 @@ def serve_phase(card: str):
 
     n_apps = 4
     cfg = get_config("qwen2_5_14b_serving")
-    ecfg = engine_cfg(EngineConfig, TemporalConfig, GPU_BLOCKS, HOST_BLOCKS)
+    ecfg = engine_cfg(EngineConfig, TemporalConfig, GPU_BLOCKS, HOST_BLOCKS,
+                      kv_precision)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    backend = TorchBackend(cfg, ecfg, A100_PCIE, seed=0, device="cuda")
+    backend = TorchBackend(cfg, ecfg, A100_PCIE, seed=0, device="cuda",
+                           params=params)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    cache = backend.cache
     n_params = sum(t.numel() for t in backend.params["layers"].values()) + \
         sum(backend.params[k].numel()
             for k in ("embed", "unembed", "final_norm"))
     print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.2f} B params in bf16, pools "
-          f"{tuple(backend.cache.k.shape)} x2, host pool pinned="
-          f"{backend.cache.host_k.is_pinned()}; set-up {setup_s:.1f} s",
+          f"{tuple(cache.k.shape)} x2, host pool {cache.host_k.dtype} "
+          f"pinned={cache.host_k.is_pinned()}; set-up {setup_s:.1f} s",
           flush=True)
+    assert cache.host_k.is_pinned()
+    if kv_precision == "int8_host":
+        assert cache.host_k.dtype == torch.int8
+        assert cache.host_scales_k.dtype == torch.float32
+        assert cache.host_scales_k.is_pinned()
     eng = Engine(ecfg, A100_PCIE, backend=backend)
     front = MCPFrontend(eng)
     submit(front, build_workload, n_apps, prompt_cap=256, decode_cap=32)
@@ -402,8 +505,13 @@ def serve_phase(card: str):
     assert rep["offloads"] >= 1, rep["offloads"]
     assert rep["truncated_prompt_tokens"] == 0
     assert backend.truncated_prompt_tokens == 0
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in SERVE_KERNELS[kv_precision] if launches[k] <= 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
+    bpb = A100_PCIE.block_bytes_for(kv_precision)
+    if kv_precision == "int8_host":
+        assert rep["uploads"] >= 1, rep["uploads"]
+        for key in ("d2h_bytes", "h2d_bytes"):
+            assert rep[key] > 0 and rep[key] % bpb == 0, (key, rep[key])
     for rid, toks in backend.generated.items():
         assert toks and all(0 <= t < cfg.vocab_size for t in toks), rid
     for rid, logits in backend.last_prefill_logits.items():
@@ -412,10 +520,12 @@ def serve_phase(card: str):
     generated = sum(len(t) for t in backend.generated.values())
     peak = torch.cuda.max_memory_allocated()
     out = dict(
-        model=cfg.name, apps=n_apps, apps_finished=rep["apps_finished"],
+        model=cfg.name, kv_precision=kv_precision, apps=n_apps,
+        apps_finished=rep["apps_finished"],
         decoded_tokens=rep["decoded_tokens"], generated_tokens=generated,
         offloads=rep["offloads"], uploads=rep["uploads"],
-        wall_s=wall, setup_s=setup_s,
+        d2h_bytes=rep["d2h_bytes"], h2d_bytes=rep["h2d_bytes"],
+        engine_block_bytes=bpb, wall_s=wall, setup_s=setup_s,
         generated_tokens_per_wall_s=generated / wall,
         max_memory_allocated_bytes=peak, launches=launches,
         virtual_avg_latency_s=rep["avg_latency"],
@@ -425,14 +535,55 @@ def serve_phase(card: str):
           f"memory {peak / 2**30:.2f} GiB", flush=True)
     print(f"  apps {rep['apps_finished']}/{n_apps}, engine decoded_tokens "
           f"{rep['decoded_tokens']}, offloads {rep['offloads']}, uploads "
-          f"{rep['uploads']}; engine latency (virtual time, A100 cost "
-          f"model, not card time) avg {rep['avg_latency']:.1f} s", flush=True)
+          f"{rep['uploads']}, d2h_bytes {rep['d2h_bytes']}, h2d_bytes "
+          f"{rep['h2d_bytes']} (engine's {kv_precision} block: {bpb} B); "
+          f"engine latency (virtual time, A100 cost model, not card time) "
+          f"avg {rep['avg_latency']:.1f} s", flush=True)
     print(f"  launches on the main path: {launches}", flush=True)
-    return out, launches
+    return out, launches, backend
+
+
+def migration_times(card: str, cache, reps: int = 10) -> dict:
+    """Wall time of ``cache.offload`` and ``cache.upload`` of M_BLOCKS
+    blocks (the kernel phase's ids: the last live block, the scratch block
+    and 30 others) to and from host blocks 0..M-1, after one warm-up call
+    each, every call ending in a synchronise. Wire bytes are what crosses
+    PCIe: the pools' bytes, or the int8 payload plus its scales."""
+    import numpy as np
+    import torch
+
+    nb = cache.num_blocks + 1
+    ids = np.concatenate([[nb - 1, nb - 2], np.random.default_rng(0).choice(
+        nb - 2, M_BLOCKS - 2, replace=False)]).tolist()
+    host = list(range(M_BLOCKS))
+    hosts = [cache.host_k, cache.host_v]
+    if cache.host_scales_k is not None:
+        hosts += [cache.host_scales_k, cache.host_scales_v]
+    wire = sum(h[:, :M_BLOCKS].numel() * h.element_size() for h in hosts)
+    out = {"blocks": M_BLOCKS, "wire_bytes": wire, "reps": reps}
+    for op, fn in (("offload", lambda: cache.offload(ids, host)),
+                   ("upload", lambda: cache.upload(host, ids))):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times))
+        out[op] = dict(ms_per_call=ms, ms_per_block=ms / M_BLOCKS,
+                       wire_gb_per_s=wire / ms / 1e6, all_ms=times)
+        print(f"  [{card}] {cache.host_precision} {op} of {M_BLOCKS} "
+              f"blocks: {ms:.3f} ms per call (median of {reps}; "
+              f"{min(times):.3f}-{max(times):.3f}), {ms / M_BLOCKS:.4f} ms "
+              f"per block, {wire} wire bytes at {wire / ms / 1e6:.2f} GB/s",
+              flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
-# phase 5: a small model on the card equals the same model on the CPU
+# phase 6: a small model on the card equals the same model on the CPU
 # ---------------------------------------------------------------------------
 
 def check_phase():
@@ -453,25 +604,32 @@ def check_phase():
                       d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
                       vocab_size=128, dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        ecfg = engine_cfg(EngineConfig, TemporalConfig, 96, 128)
-        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
-                 if isinstance(v, dict) else v.to(dev))
-             for k, v in params.items()}
-        backend = TorchBackend(cfg, ecfg, A100_PCIE, device=dev, params=p)
-        eng = Engine(ecfg, A100_PCIE, backend=backend)
-        submit(MCPFrontend(eng), build_workload, 2, prompt_cap=48,
-               decode_cap=8)
-        rep = eng.run(max_time=5000)
-        runs[dev] = (rep, backend.generated)
-    (rc, gc), (rg, gg) = runs["cpu"], runs["cuda"]
-    assert rg["offloads"] >= 1 and rg["offloads"] == rc["offloads"]
-    assert gg == gc, "tokens on the card differ from the CPU reference"
-    n = sum(len(t) for t in gg.values())
-    print(f"  tiny-f32: {n} tokens of {len(gg)} requests identical on the "
-          f"card and on the CPU, offloads {rg['offloads']}", flush=True)
-    return dict(requests=len(gg), tokens=n, offloads=rg["offloads"])
+    result = {}
+    for prec in ("fp16", "int8_host"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            ecfg = engine_cfg(EngineConfig, TemporalConfig, 96, 128, prec)
+            p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.to(dev))
+                 for k, v in params.items()}
+            backend = TorchBackend(cfg, ecfg, A100_PCIE, device=dev,
+                                   params=p)
+            eng = Engine(ecfg, A100_PCIE, backend=backend)
+            submit(MCPFrontend(eng), build_workload, 2, prompt_cap=48,
+                   decode_cap=8)
+            rep = eng.run(max_time=5000)
+            runs[dev] = (rep, backend.generated)
+        (rc, gc), (rg, gg) = runs["cpu"], runs["cuda"]
+        assert rg["offloads"] >= 1 and rg["offloads"] == rc["offloads"]
+        assert rg["uploads"] == rc["uploads"]
+        assert gg == gc, f"{prec}: tokens on the card differ from the CPU"
+        n = sum(len(t) for t in gg.values())
+        print(f"  tiny-f32 {prec}: {n} tokens of {len(gg)} requests "
+              f"identical on the card and on the CPU, offloads "
+              f"{rg['offloads']}, uploads {rg['uploads']}", flush=True)
+        result[prec] = dict(requests=len(gg), tokens=n,
+                            offloads=rg["offloads"], uploads=rg["uploads"])
+    return result
 
 
 def main() -> int:
@@ -484,7 +642,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
 
     t_start = time.perf_counter()
     card = smi()
@@ -507,10 +665,26 @@ def main() -> int:
     print("[kernels] main-path shapes, bf16 timings: ms is the kernel in a "
           "CUDA graph; eager, plain and library are eager calls on the same "
           "inputs", flush=True)
+    ops.reset_launches()
     rows = kernel_phase()
+    launches = {k: ops.launches[k] for k in KERNEL_PHASE_ONLY}
+    phase_s = {"kernels": time.perf_counter() - t_start}
 
-    print("[serve]", flush=True)
-    serve, launches = serve_phase(card)
+    serve, migration, params = {}, {}, None
+    for prec in ("fp16", "int8_host"):
+        t0 = time.perf_counter()
+        print(f"[serve {prec}]", flush=True)
+        serve[prec], counts, backend = serve_phase(card, prec, params)
+        launches.update({k: counts[k] for k in SERVE_KERNELS[prec]})
+        migration[prec] = migration_times(card, backend.cache)
+        params = backend.params
+        backend.cache = None          # free the pools before the next phase
+        del backend
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_s[f"serve_{prec}"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
 
     print("[check]", flush=True)
     check = check_phase()
@@ -530,8 +704,8 @@ def main() -> int:
     total_s = time.perf_counter() - t_start
     results = dict(card=card, device=kind, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,
-                   total_s=total_s, kernels=kernels, serve=serve,
-                   check=check)
+                   total_s=total_s, phase_s=phase_s, kernels=kernels,
+                   serve=serve, migration=migration, check=check)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

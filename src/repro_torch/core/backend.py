@@ -7,7 +7,10 @@ discrete-event simulation). ``TorchBackend`` runs the model in PyTorch
 against a real paged KV cache, on the card through the CUDA kernels of
 ``repro_torch.kernels``, and moves offloaded KV to pinned host memory and
 back. It is the counterpart of ``repro.core.backend.JaxBackend`` for dense
-archs without a sliding window.
+archs without a sliding window. ``TemporalConfig(kv_precision=
+"int8_host")`` gives the cache an int8 host tier: ``copy_out`` and
+``offload_blocks`` quantize on the card before the D2H copy, ``copy_in``
+and ``promote_blocks`` dequantize on the card after the H2D copy.
 """
 from __future__ import annotations
 

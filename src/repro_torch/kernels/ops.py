@@ -2,13 +2,15 @@
 
 Each wrapper dispatches on the device of its tensors. On the CPU it runs
 the plain PyTorch version from ``ref``; on a CUDA tensor it checks device,
-dtype (float32 or bfloat16), shape and contiguity, allocates any output
+dtype (float32 or bfloat16 pools; int8 payloads with float32 scales for
+the int8 host tier), shape and contiguity, allocates any output
 with ``torch.empty``, launches its hand-written kernel from ``csrc/`` on
 the current stream, and raises if the launch is refused. It never falls
 back to the plain version on the card.
 
 The write wrappers (``kv_token_write``, ``kv_chunk_write``,
-``block_scatter_layers``) update the pools **in place** and return them.
+``block_scatter_layers``, ``block_scatter_dequant_layers``) update the
+pools **in place** and return them.
 
 ``launches[name]`` counts the kernel launches of each wrapper (CPU calls
 are not counted); ``reset_launches`` sets every count to 0.
@@ -26,7 +28,9 @@ from repro_torch.kernels import ref as R
 
 KERNELS = ("kv_token_write", "paged_attention", "kv_chunk_write",
            "paged_prefill_attention", "block_gather_layers",
-           "block_scatter_layers")
+           "block_scatter_layers", "block_gather_quant_layers",
+           "block_scatter_dequant_layers", "kv_block_quant",
+           "kv_block_dequant")
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # query rows per paged-prefill thread block
@@ -50,6 +54,16 @@ _SIGNATURES = {
     "paged_prefill_attention": ("paged_prefill",
                                 [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                                  _I, _I, _I, _I, _F, _I, _P]),
+    "block_gather_quant_layers": ("block_quant", [_P, _P, _P, _P, _I64,
+                                                  _I64, _I64, _I, _I, _I,
+                                                  _I, _P]),
+    "block_scatter_dequant_layers": ("block_quant", [_P, _P, _P, _P, _I64,
+                                                     _I64, _I64, _I, _I, _I,
+                                                     _I, _P]),
+    "kv_block_quant": ("block_quant", [_P, _P, _P, _I64, _I, _I, _I, _I,
+                                       _P]),
+    "kv_block_dequant": ("block_quant", [_P, _P, _P, _I64, _I, _I, _I, _I,
+                                         _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -293,3 +307,98 @@ def block_scatter_layers(pools, indices, staging):
         _launch(name, pools.device, pools.data_ptr(), staging.data_ptr(),
                 indices.data_ptr(), nl, n, m, run)
     return pools
+
+
+# ---------------------------------------------------------------------------
+# int8 host tier: B7 block_gather_quant_layers, B8
+# block_scatter_dequant_layers, B11 kv_block_quant, B12 kv_block_dequant
+# ---------------------------------------------------------------------------
+
+def _check_quant(name, what, q, scales, shape):
+    """An int8 payload ``what`` of ``shape`` and float32 scales of
+    ``shape`` without its (bs, D) axes."""
+    _check(name, what, q, len(shape), torch.int8)
+    _check(name, "scales", scales, len(shape) - 2, torch.float32)
+    _require(name, tuple(q.shape) == tuple(shape),
+             f"{what} shape {tuple(q.shape)} != {tuple(shape)}")
+    want = tuple(shape[:-3]) + (shape[-2],)
+    _require(name, tuple(scales.shape) == want,
+             f"scales shape {tuple(scales.shape)} != {want}")
+
+
+def block_gather_quant_layers(pools, indices):
+    """Gather blocks ``indices`` (M,) int32 of every layer of pools
+    (L, N, bs, Hkv, D) and quantize each (layer, block, kv head) to int8:
+    returns (q (L, M, bs, Hkv, D) int8, scales (L, M, Hkv) float32)."""
+    name = "block_gather_quant_layers"
+    if _on_cpu(name, pools, indices):
+        return R.block_gather_quant_layers_ref(pools, indices)
+    nl, n, m, _ = _check_layers(name, pools, indices)
+    bs, hkv, d = pools.shape[2:]
+    q = torch.empty((nl, m, bs, hkv, d), dtype=torch.int8,
+                    device=pools.device)
+    scales = torch.empty((nl, m, hkv), dtype=torch.float32,
+                         device=pools.device)
+    if m:
+        _launch(name, pools.device, pools.data_ptr(), q.data_ptr(),
+                scales.data_ptr(), indices.data_ptr(), nl, n, m, bs, hkv, d,
+                _DTYPE_CODE[pools.dtype])
+    return q, scales
+
+
+def block_scatter_dequant_layers(pools, indices, staging, scales):
+    """Dequantize staging (L, M, bs, Hkv, D) int8 with scales (L, M, Hkv)
+    float32 to the pool dtype and write it into blocks ``indices`` (M,)
+    int32 of every layer of pools (L, N, bs, Hkv, D), in place. Returns
+    ``pools``."""
+    name = "block_scatter_dequant_layers"
+    if _on_cpu(name, pools, indices, staging, scales):
+        return R.block_scatter_dequant_layers_ref(pools, indices, staging,
+                                                  scales)
+    nl, n, m, _ = _check_layers(name, pools, indices)
+    bs, hkv, d = pools.shape[2:]
+    _check_quant(name, "staging", staging, scales, (nl, m, bs, hkv, d))
+    if m:
+        _launch(name, pools.device, pools.data_ptr(), staging.data_ptr(),
+                scales.data_ptr(), indices.data_ptr(), nl, n, m, bs, hkv, d,
+                _DTYPE_CODE[pools.dtype])
+    return pools
+
+
+def kv_block_quant(blocks):
+    """Quantize staged blocks (M, bs, Hkv, D) float32 or bfloat16 to int8:
+    returns (q (M, bs, Hkv, D) int8, scales (M, Hkv) float32)."""
+    name = "kv_block_quant"
+    if _on_cpu(name, blocks):
+        return R.quantize_block_ref(blocks)
+    if blocks.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: blocks must be float32 or bfloat16, got "
+                        f"{blocks.dtype}")
+    _check(name, "blocks", blocks, 4)
+    m, bs, hkv, d = blocks.shape
+    q = torch.empty(blocks.shape, dtype=torch.int8, device=blocks.device)
+    scales = torch.empty((m, hkv), dtype=torch.float32, device=blocks.device)
+    if m:
+        _launch(name, blocks.device, blocks.data_ptr(), q.data_ptr(),
+                scales.data_ptr(), m, bs, hkv, d, _DTYPE_CODE[blocks.dtype])
+    return q, scales
+
+
+def kv_block_dequant(q, scales, out_dtype=torch.float32):
+    """Dequantize int8 blocks (M, bs, Hkv, D) with scales (M, Hkv) float32
+    to a new (M, bs, Hkv, D) tensor of ``out_dtype`` (float32 or
+    bfloat16)."""
+    name = "kv_block_dequant"
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: out_dtype must be float32 or bfloat16, "
+                        f"got {out_dtype}")
+    if _on_cpu(name, q, scales):
+        return R.dequantize_block_ref(q, scales, out_dtype)
+    _check(name, "q", q, 4, torch.int8)
+    m, bs, hkv, d = q.shape
+    _check_quant(name, "q", q, scales, (m, bs, hkv, d))
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    if m:
+        _launch(name, q.device, q.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), m, bs, hkv, d, _DTYPE_CODE[out_dtype])
+    return out

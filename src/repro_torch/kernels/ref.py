@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the six kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving path and of the
+int8 host tier's quantize / dequantize kernels.
 
 Each function computes what its CUDA kernel in ``csrc/`` computes, with
 ordinary tensor ops and no tiling: a gather of every table page, an f32
@@ -14,6 +15,11 @@ They follow the kernels' behaviour where it differs from the JAX oracles
 * the write functions update the pools **in place** (JAX returns new
   arrays), and ``kv_chunk_write_ref`` skips tokens past ``wcount`` instead
   of sending them to the scratch slot.
+
+The quantizers follow ``quantize_block_ref`` of the JAX package bit for
+bit: ``scale = max(amax / 127, 1e-8)`` per kv head over each block's
+(token, dim) plane, then ``clamp(round(x / scale), -127, 127)`` with
+round half to even.
 """
 from __future__ import annotations
 
@@ -120,3 +126,41 @@ def kv_chunk_write_ref(k_pages, v_pages, k_new, v_new, wpages, wstart,
     k_pages.view(n * bs, hkv, d)[slots] = k_new[live].to(k_pages.dtype)
     v_pages.view(n * bs, hkv, d)[slots] = v_new[live].to(v_pages.dtype)
     return k_pages, v_pages
+
+
+def quantize_block_ref(x):
+    """Symmetric int8 block quantization, scale per (block, kv head).
+
+    x: (..., bs, Hkv, D) float, any leading block axes. Returns (q int8 of
+    the same shape, scales float32 (..., Hkv)).
+    """
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-3, -1))                   # (..., Hkv)
+    # divide by a tensor on x's device: on the card, a division by a Python
+    # scalar multiplies by its reciprocal instead, which is not the IEEE
+    # quotient the kernel and the JAX oracle compute
+    scale = torch.maximum(amax / amax.new_full((), 127.0),
+                          amax.new_full((), 1e-8))
+    q = torch.round(xf / scale[..., None, :, None]).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_block_ref(q, scale, out_dtype=torch.float32):
+    """Inverse of :func:`quantize_block_ref`, up to scale/2 per element:
+    ``q * scale`` in float32, rounded once to ``out_dtype``."""
+    return (q.float() * scale[..., None, :, None]).to(out_dtype)
+
+
+def block_gather_quant_layers_ref(pools, indices):
+    """Fused all-layer gather + quantize: pools (L, N, bs, Hkv, D), indices
+    (M,) -> (int8 (L, M, bs, Hkv, D), scales float32 (L, M, Hkv))."""
+    return quantize_block_ref(pools[:, indices.long()])
+
+
+def block_scatter_dequant_layers_ref(pools, indices, staging, scales):
+    """Fused dequantize + all-layer scatter of staging (L, M, bs, Hkv, D)
+    int8 with scales (L, M, Hkv) into pool blocks ``indices``, in place.
+    Returns ``pools``."""
+    pools[:, indices.long()] = dequantize_block_ref(staging, scales,
+                                                    pools.dtype)
+    return pools

@@ -15,6 +15,13 @@ is pinned CPU memory: an offload gathers the blocks on the card, copies
 them into pinned staging and waits for that copy to finish before it fills
 the host pool; an upload stages host blocks in pinned memory, copies them
 to the card and scatters them into the pools.
+
+``host_precision="int8_host"`` keeps the host pool as int8 payload plus
+float32 scales per (layer, block, kv head), half the fp16 bytes on every
+wire; the device pools keep ``dtype``. The offload's gather quantizes on
+the card (``block_gather_quant_layers``), so only int8 and scales cross to
+the host; the upload's scatter dequantizes on the card
+(``block_scatter_dequant_layers``), so attention never sees int8.
 """
 from __future__ import annotations
 
@@ -30,10 +37,6 @@ class PagedKVCache:
     def __init__(self, cfg, num_blocks: int, block_size: int,
                  host_blocks: int = 0, dtype=torch.bfloat16,
                  host_precision: str = "fp16", device="cuda"):
-        if host_precision == "int8_host":
-            raise NotImplementedError(
-                "host_precision='int8_host' needs the fused quantizing "
-                "migration kernels, which a later slice of the port adds")
         self.cfg = cfg
         self.device = torch.device(device)
         self.block_size = block_size
@@ -47,13 +50,20 @@ class PagedKVCache:
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         # host_blocks=0 means the tier is off: allocate nothing, so a
         # misrouted offload fails loudly instead of landing somewhere
+        self.host_scales_k = self.host_scales_v = None
         if host_blocks <= 0:
             self.host_k = self.host_v = None
-        else:
-            pin = self.device.type == "cuda"
-            hshape = (nl, host_blocks, block_size, hkv, dh)
-            self.host_k = torch.zeros(hshape, dtype=dtype, pin_memory=pin)
-            self.host_v = torch.zeros(hshape, dtype=dtype, pin_memory=pin)
+            return
+        pin = self.device.type == "cuda"
+        hshape = (nl, host_blocks, block_size, hkv, dh)
+        hdtype = torch.int8 if host_precision == "int8_host" else dtype
+        self.host_k = torch.zeros(hshape, dtype=hdtype, pin_memory=pin)
+        self.host_v = torch.zeros(hshape, dtype=hdtype, pin_memory=pin)
+        if host_precision == "int8_host":
+            self.host_scales_k = torch.zeros(
+                (nl, host_blocks, hkv), dtype=torch.float32, pin_memory=pin)
+            self.host_scales_v = torch.zeros(
+                (nl, host_blocks, hkv), dtype=torch.float32, pin_memory=pin)
 
     def _require_host(self, op: str) -> None:
         if self.host_k is None:
@@ -139,12 +149,22 @@ class PagedKVCache:
     # ---- migration (paper §6.3) ---------------------------------------------
     def offload(self, gpu_blocks: List[int], host_blocks: List[int]):
         """D2H: gather device blocks (all layers, one kernel launch per
-        tensor) and copy them into host pages ``host_blocks``."""
+        tensor) and copy them into host pages ``host_blocks``. An
+        ``int8_host`` tier quantizes inside the gather, so the copy moves
+        the int8 payload and its scales."""
         self._require_host("offload()")
         idx = self._ids(gpu_blocks)
         hidx = torch.as_tensor(np.asarray(host_blocks, np.int64))
-        staged = [ops.block_gather_layers(pool, idx)
-                  for pool in (self.k, self.v)]
+        if self.host_precision == "int8_host":
+            (kq, ks), (vq, vs) = (ops.block_gather_quant_layers(pool, idx)
+                                  for pool in (self.k, self.v))
+            staged = [kq, vq, ks, vs]
+            dests = [self.host_k, self.host_v, self.host_scales_k,
+                     self.host_scales_v]
+        else:
+            staged = [ops.block_gather_layers(pool, idx)
+                      for pool in (self.k, self.v)]
+            dests = [self.host_k, self.host_v]
         if self.device.type == "cuda":
             hosts = []
             for s in staged:
@@ -154,19 +174,31 @@ class PagedKVCache:
             # the D2H copies must land before the host pool reads them
             torch.cuda.current_stream(self.device).synchronize()
             staged = hosts
-        self.host_k.index_copy_(1, hidx, staged[0])
-        self.host_v.index_copy_(1, hidx, staged[1])
+        for dest, s in zip(dests, staged):
+            dest.index_copy_(1, hidx, s)
 
     def upload(self, host_blocks: List[int], gpu_blocks: List[int]):
         """H2D: read host pages, scatter them into (possibly new) device
-        blocks across every layer, one kernel launch per tensor."""
+        blocks across every layer, one kernel launch per tensor. An
+        ``int8_host`` tier moves the int8 payload and its scales and
+        dequantizes inside the scatter."""
         self._require_host("upload()")
         idx = self._ids(gpu_blocks)
         hidx = torch.as_tensor(np.asarray(host_blocks, np.int64))
-        for pool, host in ((self.k, self.host_k), (self.v, self.host_v)):
+
+        def staged(host):
             shape = (host.shape[0], len(host_blocks)) + tuple(host.shape[2:])
             stage = torch.empty(shape, dtype=host.dtype,
                                 pin_memory=self.device.type == "cuda")
             torch.index_select(host, 1, hidx, out=stage)
-            ops.block_scatter_layers(
-                pool, idx, stage.to(self.device, non_blocking=True))
+            return stage.to(self.device, non_blocking=True)
+
+        if self.host_precision == "int8_host":
+            for pool, host, scales in (
+                    (self.k, self.host_k, self.host_scales_k),
+                    (self.v, self.host_v, self.host_scales_v)):
+                ops.block_scatter_dequant_layers(pool, idx, staged(host),
+                                                 staged(scales))
+            return
+        for pool, host in ((self.k, self.host_k), (self.v, self.host_v)):
+            ops.block_scatter_layers(pool, idx, staged(host))

@@ -4,11 +4,13 @@
   tokencake policy with offloads forced — run once by ``repro.core`` with
   ``JaxBackend`` and once by ``repro_torch.core`` with ``TorchBackend`` on
   the same weights, gives identical tokens per request and the same
-  offload count.
+  offload count, with an fp16 and with an int8 host tier.
 * The decode invariants of ``test_backend_decode.py`` hold for the port:
   an exactly-full request never writes another request's block, an
   offload -> upload round trip is bit-exact and decode continues as if
-  never interrupted, and a re-admitted request is re-prefilled.
+  never interrupted, and a re-admitted request is re-prefilled; with the
+  int8 host tier an offload -> promote cycle restores K within scale/2
+  and greedy decode continues with the uninterrupted run's tokens.
 """
 import jax
 import numpy as np
@@ -48,16 +50,18 @@ def _shrink(workload):
     return workload
 
 
-def _engine_cfg(mk, temporal):
+def _engine_cfg(mk, temporal, kv_precision="fp16"):
     return mk.preset("tokencake", gpu_blocks=96, host_blocks=128,
                      max_running=8,
                      temporal=temporal(score_threshold=-1.0,
-                                       pressure_watermark=0.0))
+                                       pressure_watermark=0.0,
+                                       kv_precision=kv_precision))
 
 
-def test_engine_trace_matches_jax_token_for_token():
+@pytest.mark.parametrize("kv_precision", ["fp16", "int8_host"])
+def test_engine_trace_matches_jax_token_for_token(kv_precision):
     jcfg = JModelConfig(**TINY)
-    jecfg = _engine_cfg(JEngineConfig, JTemporalConfig)
+    jecfg = _engine_cfg(JEngineConfig, JTemporalConfig, kv_precision)
     jback = JaxBackend(jcfg, jecfg, J_A100)
     jeng = JEngine(jecfg, J_A100, backend=jback)
     for t, g in _shrink(j_build_workload("deep_research", qps=2.0,
@@ -67,7 +71,7 @@ def test_engine_trace_matches_jax_token_for_token():
 
     params = M.load_jax_params(jax.tree.map(np.asarray, jback.params),
                                "cpu")
-    ecfg = _engine_cfg(EngineConfig, TemporalConfig)
+    ecfg = _engine_cfg(EngineConfig, TemporalConfig, kv_precision)
     back = TorchBackend(CFG, ecfg, A100_PCIE, device="cpu", params=params)
     eng = Engine(ecfg, A100_PCIE, backend=back)
     for t, g in _shrink(build_workload("deep_research", qps=2.0, n_apps=2,
@@ -78,7 +82,11 @@ def test_engine_trace_matches_jax_token_for_token():
     assert rep["apps_finished"] == jrep["apps_finished"] == 2
     assert rep["offloads"] >= 1
     assert rep["offloads"] == jrep["offloads"]
+    assert rep["uploads"] == jrep["uploads"]
     assert rep["decoded_tokens"] == jrep["decoded_tokens"] > 0
+    bpb = A100_PCIE.block_bytes_for(kv_precision)
+    for key in ("d2h_bytes", "h2d_bytes"):
+        assert rep[key] == jrep[key] > 0 and rep[key] % bpb == 0, key
     assert rep["truncated_prompt_tokens"] == 0
     assert back.generated.keys() == jback.generated.keys()
     for rid, toks in jback.generated.items():
@@ -89,9 +97,10 @@ def test_engine_trace_matches_jax_token_for_token():
 # the decode invariants of test_backend_decode.py, on the port
 # ---------------------------------------------------------------------------
 
-def mk_backend(gpu_blocks=24, host_blocks=16):
+def mk_backend(gpu_blocks=24, host_blocks=16, kv_precision="fp16"):
     ecfg = EngineConfig(mode="baseline", gpu_blocks=gpu_blocks,
-                        host_blocks=host_blocks)
+                        host_blocks=host_blocks,
+                        temporal=TemporalConfig(kv_precision=kv_precision))
     return TorchBackend(CFG, ecfg, A100_PCIE, seed=0, device="cpu")
 
 
@@ -146,6 +155,42 @@ def test_offload_upload_roundtrip_bit_exact_and_decode_continues():
     r.gpu_blocks_by_device[0] = [10, 11, 12]
     r.reserved_upload_blocks = []
     assert torch.equal(backend.cache.k[:, [10, 11, 12]], snap_k)
+    for _ in range(steps_after):
+        backend.decode([r])
+    assert backend.generated["r"] == ref_backend.generated["r"]
+
+
+def test_backend_decode_survives_int8_offload_promote_cycle():
+    """The int8 host tier: KV quantizes on copy_out, dequantizes on copy_in
+    into new device blocks; the restored K is within the per-block
+    quantization bound and greedy decode afterwards gives exactly the
+    tokens of an uninterrupted run (``test_quant_kernels.py``)."""
+    steps_before, steps_after = 4, 4
+    rng = np.random.default_rng(7)
+    prompt = [int(t) for t in rng.integers(0, 128, 20)]
+
+    ref_backend = mk_backend(kv_precision="int8_host")
+    ref = mk_req("r", prompt, blocks=[1, 2, 3])
+    for _ in range(steps_before + steps_after):
+        ref_backend.decode([ref])
+
+    backend = mk_backend(kv_precision="int8_host")
+    r = mk_req("r", prompt, blocks=[1, 2, 3])
+    for _ in range(steps_before):
+        backend.decode([r])
+    snap_k = backend.cache.k[:, [1, 2, 3]].clone()
+    r.host_blocks = [0, 1, 2]
+    backend.copy_out(r)
+    assert backend.cache.host_k.dtype == torch.int8
+    backend.cache.k[:, [1, 2, 3]] = 0              # blocks get recycled
+    backend.cache.v[:, [1, 2, 3]] = 0
+    r.reserved_upload_blocks = [10, 11, 12]
+    backend.copy_in(r)
+    r.gpu_blocks_by_device[0] = [10, 11, 12]
+    r.reserved_upload_blocks = []
+    bound = backend.cache.host_scales_k[:, :3, None, :, None] / 2 + 1e-6
+    assert torch.all((backend.cache.k[:, [10, 11, 12]] - snap_k).abs()
+                     <= bound)
     for _ in range(steps_after):
         backend.decode([r])
     assert backend.generated["r"] == ref_backend.generated["r"]

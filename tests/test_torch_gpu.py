@@ -8,7 +8,8 @@ kernels 3e-5 in float32 and, in bfloat16, atol 2e-3 with rtol 8e-3: kernel
 and plain version both accumulate in float32 and round once, so they may
 differ by one bfloat16 step of the output (2**-7 of its size at most).
 Two cases run at Qwen2.5-14B's serve-pool size, where byte offsets pass
-2**31 and only 64-bit offset arithmetic gives the right blocks.
+2**31 and only 64-bit offset arithmetic gives the right blocks. The int8
+quantize and dequantize kernels are exact against their plain versions.
 """
 import numpy as np
 import pytest
@@ -171,3 +172,74 @@ def test_launches_are_counted_and_bad_inputs_raise(dev):
         ops.block_gather_layers(pools, torch.tensor([1], device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         ops.block_gather_layers(pools.transpose(0, 1), _ints([1], dev))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("layers,n", [
+    (6, 50),
+    (48, 2049),                  # Qwen2.5-14B serve pool: offsets > 2**31
+])
+def test_block_gather_quant_scatter_dequant_layers(dev, dt, layers, n):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pools = _rand(gen, (layers, n, 16, 8, 128), dt, dev)
+    pools[:, 20] = 0                                    # an all-zero block
+    idx = _ints([7, n - 2, n - 1, 20], dev)             # last live, scratch
+    q, s = ops.block_gather_quant_layers(pools, idx)
+    want_q, want_s = R.block_gather_quant_layers_ref(pools, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert not q[:, 3].any() and bool((s[:, 3] == 1e-8).all())
+    dst = _ints([0, n - 1, 5, 11], dev)
+    want = R.block_scatter_dequant_layers_ref(pools.clone(), dst, q, s)
+    ops.block_scatter_dequant_layers(pools, dst, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(pools, want)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("m,bs,hkv,d", [
+    (1536, 16, 8, 128),          # 32 blocks x 48 layers of Qwen2.5-14B
+    (5, 8, 5, 16),
+    (2, 4, 12, 32),              # more kv heads than warps per block
+    (3, 4, 2, 6),                # D not a multiple of a 16-byte vector
+])
+def test_kv_block_quant_dequant(dev, dt, m, bs, hkv, d):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = _rand(gen, (m, bs, hkv, d), dt, dev) * 7.0
+    x[0] = 0
+    q, s = ops.kv_block_quant(x)
+    want_q, want_s = R.quantize_block_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    for out in (torch.float32, torch.bfloat16):
+        y = ops.kv_block_dequant(q, s, out)
+        torch.cuda.synchronize()
+        assert y.dtype == out
+        assert torch.equal(y, R.dequantize_block_ref(q, s, out))
+
+
+def test_int8_launches_are_counted_and_bad_inputs_raise(dev):
+    ops.reset_launches()
+    pools = torch.zeros((2, 4, 16, 8, 128), device=dev)
+    idx = _ints([1, 3], dev)
+    q, s = ops.block_gather_quant_layers(pools, idx)
+    ops.block_scatter_dequant_layers(pools, idx, q, s)
+    q2, s2 = ops.kv_block_quant(pools[0])
+    ops.kv_block_dequant(q2, s2)
+    torch.cuda.synchronize()
+    for name in ("block_gather_quant_layers", "block_scatter_dequant_layers",
+                 "kv_block_quant", "kv_block_dequant"):
+        assert ops.launches[name] == 1, name
+    with pytest.raises(TypeError):                    # staging not int8
+        ops.block_scatter_dequant_layers(pools, idx, q.float(), s)
+    with pytest.raises(ValueError, match="scales shape"):
+        ops.block_scatter_dequant_layers(pools, idx, q,
+                                         s[:, :1].contiguous())
+    with pytest.raises(TypeError):                    # ids not int32
+        ops.block_gather_quant_layers(pools, idx.long())
+    with pytest.raises(TypeError):                    # pools not float
+        ops.block_gather_quant_layers(q, idx)
+    with pytest.raises(TypeError):
+        ops.kv_block_dequant(q2, s2, torch.float16)
+    with pytest.raises(ValueError, match="scales shape"):
+        ops.kv_block_dequant(q2, s2[:1])

@@ -5,6 +5,12 @@ Tolerances are those of ``test_kernels.py``: 3e-5 in float32, 2e-2 in
 bfloat16 for the attention kernels; the write and copy kernels are exact.
 Write kernels are compared on every block but the scratch block, where
 padded rows may land in any order.
+
+The int8 quantizers equal the JAX oracle ``quantize_block_ref`` bit for
+bit; against the jitted Pallas kernels a payload element may be one step
+off and a scale one ulp (``rtol=1e-6``): under ``jit`` XLA turns the
+oracle's ``amax / 127`` into ``amax * (1/127)``. Dequantizing is exact
+against both.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as JR
 from repro_torch.kernels import ops
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -173,6 +180,109 @@ def test_block_gather_scatter_layers(dt):
     got = ops.block_scatter_layers(tpools, tdst, tst)
     assert got is tpools                  # in place
     np.testing.assert_array_equal(npf(got), npf(want))
+
+
+# ---------------------------------------------------------------------------
+# int8 host tier: B7, B8, B11, B12
+# ---------------------------------------------------------------------------
+
+def scaled(rng, shape):
+    """Unit normals times one random scale per case, as float32: the
+    scale moves where ``x / scale`` lands relative to the rounding ties."""
+    return (10.0 ** rng.uniform(-2, 2)
+            * rng.standard_normal(shape)).astype(np.float32)
+
+
+def assert_quant_equal(q, s, want_q, want_s):
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(want_s))
+
+
+def assert_quant_near_pallas(q, s, pallas_q, pallas_s):
+    # the jitted Pallas kernels compute the scale as amax * (1/127) (XLA
+    # rewrites the division by a constant), one ulp off the oracle in some
+    # blocks, which moves a rare payload element by one step
+    np.testing.assert_allclose(s.numpy(), np.asarray(pallas_s), rtol=1e-6,
+                               atol=0)
+    step = np.abs(q.numpy().astype(np.int16)
+                  - np.asarray(pallas_q).astype(np.int16))
+    assert step.max() <= 1
+
+
+def assert_round_trip(y, x, s, scale_shape):
+    """|dequant(quant(x)) - x| <= scale/2, plus the rounding of the float32
+    quotient x / scale and product q * scale (each at most |x| * 2**-24)
+    and of the cast to y's dtype (at most |x| * eps)."""
+    ax = np.abs(npf(x))
+    err = np.abs(npf(y) - npf(x))
+    bound = s.numpy().reshape(scale_shape) / 2 + 1e-7 \
+        + ax * (2.0 ** -22 + torch.finfo(y.dtype).eps)
+    assert np.all(err <= bound), float((err - bound).max())
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("m,bs,hkv,d", [
+    (3, 8, 2, 32),
+    (1, 16, 1, 64),
+    (5, 8, 5, 16),     # odd head count
+])
+def test_kv_block_quant_and_dequant(dt, seed, m, bs, hkv, d):
+    rng = np.random.default_rng(seed)
+    x, tx = pair(scaled(rng, (m, bs, hkv, d)), dt)
+    np.testing.assert_array_equal(npf(tx), npf(x))   # same inputs
+    q, s = ops.kv_block_quant(tx)
+    want_q, want_s = JR.quantize_block_ref(x)
+    assert_quant_equal(q, s, want_q, want_s)
+    assert_quant_near_pallas(q, s, *jops.kv_block_quant(x))
+    for odt in ("f32", "bf16"):
+        jd, td = DTYPES[odt]
+        y = ops.kv_block_dequant(q, s, td)
+        assert y.dtype == td
+        np.testing.assert_array_equal(
+            npf(y), npf(JR.dequantize_block_ref(want_q, want_s, jd)))
+        np.testing.assert_array_equal(
+            npf(y), npf(jops.kv_block_dequant(want_q, want_s, jd)))
+    assert_round_trip(ops.kv_block_dequant(q, s), tx, s, (m, 1, hkv, 1))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_zero_block_quantizes_to_zero_with_floor_scale(dt):
+    x, tx = pair(np.zeros((2, 4, 3, 8), np.float32), dt)
+    q, s = ops.kv_block_quant(tx)
+    assert_quant_equal(q, s, *JR.quantize_block_ref(x))
+    assert not q.any()
+    assert torch.equal(s, torch.full((2, 3), 1e-8))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("nl,n,bs,hkv,d,src,dst", [
+    (2, 10, 8, 2, 32, [7, 2, 5], [1, 8, 4]),
+    (2, 8, 8, 5, 16, [0, 3, 6], [6, 0, 3]),    # odd head count
+])
+def test_block_gather_quant_scatter_dequant_layers(dt, nl, n, bs, hkv, d,
+                                                   src, dst):
+    rng = np.random.default_rng(6)
+    pools, tpools = pair(scaled(rng, (nl, n, bs, hkv, d)), dt)
+    orig = npf(tpools).copy()
+    idx, tidx = ints(src)
+    q, s = ops.block_gather_quant_layers(tpools, tidx)
+    want_q, want_s = JR.block_gather_quant_layers_ref(pools, idx)
+    assert_quant_equal(q, s, want_q, want_s)
+    assert_quant_near_pallas(q, s, *jops.block_gather_quant_layers(pools,
+                                                                   idx))
+
+    didx, tdidx = ints(dst)
+    want = JR.block_scatter_dequant_layers_ref(pools, didx, want_q, want_s)
+    pallas = jops.block_scatter_dequant_layers(pools, didx, want_q, want_s)
+    got = ops.block_scatter_dequant_layers(tpools, tdidx, q, s)
+    assert got is tpools                  # in place
+    np.testing.assert_array_equal(npf(got), npf(want))
+    np.testing.assert_array_equal(npf(got), npf(pallas))
+    untouched = [i for i in range(n) if i not in dst]
+    np.testing.assert_array_equal(npf(got)[:, untouched], orig[:, untouched])
+    assert_round_trip(got[:, dst], orig[:, src], s, (nl, len(src), 1, hkv, 1))
 
 
 def test_cpu_calls_are_not_counted_as_launches():

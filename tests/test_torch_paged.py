@@ -1,6 +1,11 @@
 """The port's PagedKVCache against the JAX one, bit for bit, on the CPU:
 offload -> upload round trips into new blocks, COW ``copy_blocks``, the
-layer-folded ``write_tokens``, ``write_prefill`` and ``write_window``."""
+layer-folded ``write_tokens``, ``write_prefill`` and ``write_window``.
+
+With the int8 host tier the port's host payload and scales equal the JAX
+oracle ``quantize_block_ref`` bit for bit; against the JAX cache, whose
+jitted Pallas gather computes the scale as ``amax * (1/127)``, a payload
+element may be one step off and a scale one ulp (``rtol=1e-6``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs.base import ModelConfig as JModelConfig
+from repro.kernels import ref as JR
 from repro.kvcache.paged import PagedKVCache as JCache
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kvcache.paged import PagedKVCache
@@ -18,12 +24,13 @@ TINY = dict(name="tiny-f32", arch_type="dense", num_layers=3, d_model=64,
 NB, BS, HOST = 10, 4, 6
 
 
-def _pair(host_blocks=HOST):
+def _pair(host_blocks=HOST, precision="fp16"):
     rng = np.random.default_rng(0)
     j = JCache(JModelConfig(**TINY), NB, BS, host_blocks=host_blocks,
-               dtype=jnp.float32)
+               dtype=jnp.float32, host_precision=precision)
     t = PagedKVCache(ModelConfig(**TINY), NB, BS, host_blocks=host_blocks,
-                     dtype=torch.float32, device="cpu")
+                     dtype=torch.float32, host_precision=precision,
+                     device="cpu")
     k = rng.standard_normal(t.k.shape).astype(np.float32)
     v = rng.standard_normal(t.v.shape).astype(np.float32)
     j.k, j.v = jnp.asarray(k), jnp.asarray(v)
@@ -51,6 +58,37 @@ def test_offload_upload_roundtrip_matches_jax_bit_for_bit():
         c.upload([4, 0, 2], [8, 9, 3])
     _same(j, t)
     assert torch.equal(t.k[:, [8, 9, 3]], snap)
+
+
+def test_int8_offload_upload_roundtrip_matches_jax():
+    j, t, _ = _pair(precision="int8_host")
+    orig = [p[:, [1, 3, 5]].clone() for p in (t.k, t.v)]
+    for c in (j, t):
+        c.offload([1, 3, 5], [0, 1, 2])
+    hosts = ((j.host_k, t.host_k), (j.host_v, t.host_v))
+    scales = ((j.host_scales_k, t.host_scales_k),
+              (j.host_scales_v, t.host_scales_v))
+    for (jq, tq), (js, ts), o in zip(hosts, scales, orig):
+        assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+        assert tq.shape == jq.shape and ts.shape == js.shape
+        want_q, want_s = JR.quantize_block_ref(jnp.asarray(o.numpy()))
+        np.testing.assert_array_equal(tq.numpy()[:, :3], np.asarray(want_q))
+        np.testing.assert_array_equal(ts.numpy()[:, :3], np.asarray(want_s))
+        np.testing.assert_allclose(ts.numpy(), js, rtol=1e-6, atol=0)
+        assert np.abs(tq.numpy().astype(np.int16)
+                      - jq.astype(np.int16)).max() <= 1
+        jq[...], js[...] = tq.numpy(), ts.numpy()   # upload the same bytes
+    for p in (t.k, t.v):
+        p[:, [1, 3, 5]] = 0
+    j.k = j.k.at[:, jnp.asarray([1, 3, 5])].set(0)
+    j.v = j.v.at[:, jnp.asarray([1, 3, 5])].set(0)
+    for c in (j, t):
+        c.upload([0, 1, 2], [6, 7, 0])
+    _same(j, t)
+    for p, ts, o in zip((t.k, t.v), (t.host_scales_k, t.host_scales_v),
+                        orig):
+        bound = ts[:, :3, None, :, None] / 2 + 1e-6
+        assert torch.all((p[:, [6, 7, 0]] - o).abs() <= bound)
 
 
 def test_copy_blocks_matches_jax():
@@ -86,11 +124,19 @@ def test_write_window_matches_jax(start, count):
 
 
 def test_disabled_host_tier_and_int8_host_fail_loudly():
+    """A disabled host tier fails loudly; an int8 host tier allocates its
+    int8 payload and float32 scales, and an fp16 one has no scales."""
     _, t, _ = _pair(host_blocks=0)
+    assert t.host_scales_k is None and t.host_scales_v is None
     with pytest.raises(RuntimeError, match="host_blocks=0"):
         t.offload([1], [0])
     with pytest.raises(RuntimeError, match="host_blocks=0"):
         t.upload([0], [1])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PagedKVCache(ModelConfig(**TINY), NB, BS, host_blocks=2,
+    c = PagedKVCache(ModelConfig(**TINY), NB, BS, host_blocks=2,
                      host_precision="int8_host", device="cpu")
+    for h in (c.host_k, c.host_v):
+        assert h.dtype == torch.int8 and h.shape == (3, 2, BS, 2, 16)
+    for s in (c.host_scales_k, c.host_scales_v):
+        assert s.dtype == torch.float32 and s.shape == (3, 2, 2)
+    assert c.k.dtype == torch.bfloat16
+    assert _pair()[1].host_scales_k is None

@@ -19,7 +19,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    CUDA events: the kernel alone inside a CUDA graph, and, called
    eagerly, its wrapper, its plain version and one PyTorch library call
    computing the same function where there is one; beside them its bound
-   (bytes over 3.35 TB/s or operations over the peak of their type);
+   (bytes over 3.35 TB/s or operations over the peak of their type). The
+   int8-pool attention kernels take the float attention cases' queries,
+   tables and lengths over those pools quantized on the card, and their
+   difference from the float kernels on the same inputs (the int8 error)
+   is printed, ungated;
 4. serve fp16: four deep_research apps through the tokencake engine with
    ``TorchBackend`` at Qwen2.5-14B's full width and depth (48 layers,
    random bf16 weights from seed 0), a 2048-block device pool and a
@@ -36,9 +40,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    and offloads as the same model on the CPU through the kernels' plain
    versions, with an fp16 and with an int8 host tier.
 
-B11 and B12 (``kv_block_quant`` / ``kv_block_dequant``) run in the kernel
-phase only: no serving path of the JAX package calls them, so their
-launches are those of phase 3.
+B9-B13b (``paged_attention_quant``, ``paged_prefill_attention_quant``,
+``kv_block_quant``, ``kv_block_dequant``, ``block_gather``,
+``block_scatter``) run in the kernel phase only: no serving path of the
+JAX package calls them, so their launches are those of phase 3.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``. ``--out PATH`` also
@@ -96,6 +101,16 @@ KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
                        "src/repro/kernels/kv_write.py:154"),
     "kv_block_dequant": ("src/repro_torch/kernels/csrc/block_quant.cu",
                          "src/repro/kernels/kv_write.py:189"),
+    "paged_attention_quant": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:230"),
+    "paged_prefill_attention_quant": (
+        "src/repro_torch/kernels/csrc/paged_prefill.cu",
+        "src/repro/kernels/paged_prefill.py:230"),
+    "block_gather": ("src/repro_torch/kernels/csrc/block_copy.cu",
+                     "src/repro/kernels/block_copy.py:22"),
+    "block_scatter": ("src/repro_torch/kernels/csrc/block_copy.cu",
+                      "src/repro/kernels/block_copy.py:175"),
 }
 
 # the kernels each serve phase must launch
@@ -108,7 +123,9 @@ SERVE_KERNELS = {
                   "block_scatter_dequant_layers"),
 }
 # run in the kernel phase only (no serving path calls them)
-KERNEL_PHASE_ONLY = ("kv_block_quant", "kv_block_dequant")
+KERNEL_PHASE_ONLY = ("kv_block_quant", "kv_block_dequant",
+                     "paged_attention_quant", "paged_prefill_attention_quant",
+                     "block_gather", "block_scatter")
 NO_LIBRARY = "none: no single PyTorch call computes this function"
 
 
@@ -348,6 +365,70 @@ def kernel_cases(dt: str):
         plain=lambda: R.dequantize_block_ref(bq, bsc, td),
         library=None, library_call=NO_LIBRARY,
         nbytes=qbytes, flops=2.0 * elems, ops_dt="f32"))
+
+    # B9/B10: B2's and B4's queries, tables and lengths over their pools
+    # quantized on the card by B11 (int8 pages, (N, Hkv) float32 scales),
+    # quantized here, before any write case runs; "versus" is B2/B4 on the
+    # pools as quantized, for the int8 error. Bytes: the live int8 K/V, one
+    # scale per live (page, kv head) and tensor, q, out, tables and
+    # lengths; operations as B2/B4 (the dequantizing multiplies, 2 per
+    # K/V element, take under 0.001 ms at the float32 peak)
+    kq, ksc = ops.kv_block_quant(kp)
+    vq, vsc = ops.kv_block_quant(vp)
+    k0, v0 = kp.clone(), vp.clone()
+    kdq = R.dequantize_block_ref(kq, ksc, td)[tables.long()] \
+        .reshape(B, P * BS, HKV, D).transpose(1, 2).contiguous()
+    vdq = R.dequantize_block_ref(vq, vsc, td)[tables.long()] \
+        .reshape(B, P * BS, HKV, D).transpose(1, 2).contiguous()
+    irow, srow = HKV * D, HKV * 4        # int8 bytes per token, scale bytes
+    n_pages = int(np.ceil(lens / BS).sum())
+    cases.append(dict(
+        name="paged_attention_quant", kind="attn", targets=(),
+        kernel=lambda: ops.paged_attention_quant(q, kq, vq, ksc, vsc, tables,
+                                                 cl),
+        plain=lambda: R.paged_attention_quant_ref(q, kq, vq, ksc, vsc,
+                                                  tables, cl),
+        versus=lambda: ops.paged_attention(q, k0, v0, tables, cl),
+        library=sdpa(q[:, :, None], kdq, vdq, mask_d),
+        library_call="scaled_dot_product_attention over K/V gathered and "
+                     "dequantized beforehand",
+        nbytes=(2 * B * H * D * es + 2 * ctx * irow + 2 * n_pages * srow
+                + 4 * (B * P + B)),
+        flops=4.0 * H * D * ctx))
+    kv_tok = qpos.max(axis=1) + 1
+    n_pages = int(np.ceil(kv_tok / BS).sum())
+    cases.append(dict(
+        name="paged_prefill_attention_quant", kind="attn", targets=(),
+        kernel=lambda: ops.paged_prefill_attention_quant(qc, kq, vq, ksc, vsc,
+                                                         tables, qp),
+        plain=lambda: R.paged_prefill_attention_quant_ref(qc, kq, vq, ksc,
+                                                          vsc, tables, qp),
+        versus=lambda: ops.paged_prefill_attention(qc, k0, v0, tables, qp),
+        library=sdpa(qc.transpose(1, 2), kdq, vdq, mask_p),
+        library_call="scaled_dot_product_attention over K/V gathered and "
+                     "dequantized beforehand",
+        nbytes=(2 * int(live_q.sum()) * H * D * es
+                + 2 * int(kv_tok.sum()) * irow + 2 * n_pages * srow
+                + 4 * (B * C + B * P)),
+        flops=4.0 * H * D * int((qpos[live_q] + 1).sum())))
+
+    # B13a/B13b: the same 32 block ids (the last live block and the scratch
+    # block among them) in one layer of the serve pool, (2049, 16, 8, 128)
+    page1 = rand(nb, BS, HKV, D)
+    staging1 = rand(M_BLOCKS, BS, HKV, D)
+    moved1 = 2 * M_BLOCKS * BS * row + 4 * M_BLOCKS
+    cases.append(dict(
+        name="block_gather", kind="copy", targets=(),
+        kernel=lambda: ops.block_gather(page1, idx),
+        plain=lambda: R.block_gather_ref(page1, idx),
+        library=lambda: page1.index_select(0, idx64),
+        library_call="index_select", nbytes=moved1, flops=0.0))
+    cases.append(dict(
+        name="block_scatter", kind="scatter", targets=(page1,),
+        kernel=lambda: ops.block_scatter(page1, idx, staging1),
+        plain=lambda: R.block_scatter_ref(page1, idx, staging1),
+        library=lambda: page1.index_copy_(0, idx64, staging1),
+        library_call="index_copy_", nbytes=moved1, flops=0.0))
     return cases
 
 
@@ -404,6 +485,13 @@ def kernel_phase():
             err = check_case(case, dt)
             row = rows.setdefault(case["name"], {"name": case["name"]})
             row[f"max_abs_err_{dt}"] = err
+            if "versus" in case:              # int8 error, information only
+                diff = case["kernel"]().float() - case["versus"]().float()
+                d = row[f"int8_vs_float_max_abs_err_{dt}"] = float(
+                    diff.abs().max())
+                print(f"  {case['name']:28s} {dt}: int8 pages vs the float "
+                      f"kernel on the pages before quantization: max abs "
+                      f"difference {d:.4g} (no gate)", flush=True)
             if dt != "bf16":
                 continue
             lib = case["library"]
@@ -701,6 +789,11 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             library_call=r["library_call"]))
+        if "int8_vs_float_max_abs_err_bf16" in r:
+            kernels[-1].update(
+                int8_vs_float_max_abs_err=r["int8_vs_float_max_abs_err_bf16"],
+                int8_vs_float_max_abs_err_f32=r[
+                    "int8_vs_float_max_abs_err_f32"])
     total_s = time.perf_counter() - t_start
     results = dict(card=card, device=kind, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,

@@ -1,10 +1,13 @@
 // All-layer KV block migration: gather pool blocks into a staging buffer
 // (offload, COW source) and scatter a staging buffer into pool blocks
-// (upload, promotion, COW destination, whole-prompt prefill write).
+// (upload, promotion, COW destination, whole-prompt prefill write); and
+// the same copies of one layer's (N, bs, Hkv, D) pool.
 //
 // Replaces (Pallas, TPU):
 //   block_gather_layers   <- src/repro/kernels/block_copy.py:41
 //   block_scatter_layers  <- src/repro/kernels/block_copy.py:63
+//   block_gather          <- src/repro/kernels/block_copy.py:22
+//   block_scatter         <- src/repro/kernels/block_copy.py:175
 //
 // Bound on the H100: memory. Each (layer, block) pair is read once and
 // written once: bs*Hkv*D elements, 32 KiB at Qwen2.5-14B's bs=16, Hkv=8,
@@ -17,7 +20,10 @@
 // 16-byte-vector stream with every load and store coalesced; grid.x walks
 // the M block ids and grid.y the L layers, so a migration of M blocks
 // fills the card with L*M independent copies. Offsets are int64_t. Block
-// ids outside [0, N) are skipped.
+// ids outside [0, N) are skipped. The single-layer copies are the same
+// kernels with L = 1, the pool read as (1, N, bs, Hkv, D): M blocks of
+// 32 KiB each at Qwen2.5-14B's widths, too few bytes to pass the launch
+// cost, so they are bound by the launch rather than by memory.
 #include "common.cuh"
 
 template <typename V>
@@ -88,5 +94,23 @@ extern "C" int block_scatter_layers(void* pools, const void* staging,
                                     int64_t run_bytes, void* stream) {
   return launch_scatter((char*)pools, (const char*)staging,
                         (const int32_t*)idx, n_layers, n_blocks, m_blocks,
+                        run_bytes, (cudaStream_t)stream);
+}
+
+extern "C" int block_gather(const void* pages, void* staging,
+                            const void* idx, int64_t n_blocks,
+                            int64_t m_blocks, int64_t run_bytes,
+                            void* stream) {
+  return launch_gather((const char*)pages, (char*)staging,
+                       (const int32_t*)idx, 1, n_blocks, m_blocks, run_bytes,
+                       (cudaStream_t)stream);
+}
+
+extern "C" int block_scatter(void* pages, const void* staging,
+                             const void* idx, int64_t n_blocks,
+                             int64_t m_blocks, int64_t run_bytes,
+                             void* stream) {
+  return launch_scatter((char*)pages, (const char*)staging,
+                        (const int32_t*)idx, 1, n_blocks, m_blocks,
                         run_bytes, (cudaStream_t)stream);
 }

@@ -1,12 +1,14 @@
-// Shared helpers for the serving-path kernels: float conversion for the
-// two pool types (f32, bf16), the dtype codes the Python wrappers pass,
-// and a block-wide copy of one contiguous run with the widest vector that
-// the run's alignment allows.
+// Shared helpers for the kernels: float conversion for the two pool types
+// (f32, bf16) and for int8 pages, the dtype codes the Python wrappers
+// pass, and a block-wide copy of one contiguous run with the widest vector
+// that the run's alignment allows.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // dtype codes shared with ops.py
 #define DTYPE_F32 0
@@ -17,6 +19,16 @@
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+
+// One page element as f32. An int8 element of tile page tp is dequantized
+// with that page's scale sc[tp]: one f32 product, rounded once, as
+// dequantize_block_ref computes it; other page types ignore sc.
+template <typename P>
+__device__ __forceinline__ float page_f32(P x, const float* sc, int tp) {
+  if constexpr (std::is_same<P, int8_t>::value) return to_f32(x) * sc[tp];
+  else return to_f32(x);
 }
 
 template <typename T>
@@ -40,17 +52,23 @@ __device__ __forceinline__ void copy_run(char* dst, const char* src,
 // Stage the K and V rows of one kv head for n_tok consecutive positions
 // of a paged sequence into shared memory as f32: k_dst[t * k_ld + d],
 // v_dst[t * v_ld + d]. Position t lives in page pg[t / bs] at row t % bs.
-// With vec (every row 16-byte aligned, D * sizeof(T) a multiple of 16)
-// each thread issues four 16-byte loads per tensor before it uses any, so
-// a tile's bytes are in flight together instead of one load per thread.
-template <typename T>
+// Pages of type P are float, bf16 or int8; int8 pages are dequantized on
+// the way with the per-tile-page scales k_sc[t / bs] and v_sc[t / bs]
+// (unused, and may be null, for float pages). With vec (every row 16-byte
+// aligned, D * sizeof(P) a multiple of 16) each thread issues four 16-byte
+// loads per tensor before it uses any, so a tile's bytes are in flight
+// together instead of one load per thread; int8 vectors are then written
+// as float4 stores, so k_dst, v_dst and their row strides must keep rows
+// 16-byte aligned.
+template <typename P>
 __device__ __forceinline__ void stage_kv_f32(
     float* k_dst, int k_ld, float* v_dst, int v_ld,
-    const T* __restrict__ k_pages, const T* __restrict__ v_pages,
-    const int* pg, int n_tok, int bs, int64_t page_stride,
-    int64_t tok_stride, int64_t head_off, int D, bool vec) {
+    const P* __restrict__ k_pages, const P* __restrict__ v_pages,
+    const int* pg, const float* k_sc, const float* v_sc, int n_tok, int bs,
+    int64_t page_stride, int64_t tok_stride, int64_t head_off, int D,
+    bool vec) {
   if (vec) {
-    constexpr int E = 16 / sizeof(T);   // elements per 16-byte vector
+    constexpr int E = 16 / sizeof(P);   // elements per 16-byte vector
     constexpr int U = 4;                // vectors in flight per tensor
     const int vpr = D / E;              // vectors per row
     const int n = n_tok * vpr;
@@ -73,12 +91,30 @@ __device__ __forceinline__ void stage_kv_f32(
         const int i = i0 + u * blockDim.x;
         if (i < n) {
           const int t = i / vpr, c = i % vpr;
-          const T* ke = reinterpret_cast<const T*>(&kr[u]);
-          const T* ve = reinterpret_cast<const T*>(&vr[u]);
+          const P* ke = reinterpret_cast<const P*>(&kr[u]);
+          const P* ve = reinterpret_cast<const P*>(&vr[u]);
+          if constexpr (std::is_same<P, int8_t>::value) {
+            // 16 floats per vector, written as four float4 stores: scalar
+            // stores from lanes 16 floats apart would hit 2 of the 32
+            // banks (needs 16-byte aligned rows: k_ld, v_ld multiples of 4)
+            const float ks = k_sc[t / bs], vs = v_sc[t / bs];
+            float4* kd = reinterpret_cast<float4*>(k_dst + t * k_ld + c * E);
+            float4* vd = reinterpret_cast<float4*>(v_dst + t * v_ld + c * E);
 #pragma unroll
-          for (int e = 0; e < E; ++e) {
-            k_dst[t * k_ld + c * E + e] = to_f32(ke[e]);
-            v_dst[t * v_ld + c * E + e] = to_f32(ve[e]);
+            for (int e = 0; e < E; e += 4) {
+              kd[e / 4] = make_float4(
+                  to_f32(ke[e]) * ks, to_f32(ke[e + 1]) * ks,
+                  to_f32(ke[e + 2]) * ks, to_f32(ke[e + 3]) * ks);
+              vd[e / 4] = make_float4(
+                  to_f32(ve[e]) * vs, to_f32(ve[e + 1]) * vs,
+                  to_f32(ve[e + 2]) * vs, to_f32(ve[e + 3]) * vs);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              k_dst[t * k_ld + c * E + e] = to_f32(ke[e]);
+              v_dst[t * v_ld + c * E + e] = to_f32(ve[e]);
+            }
           }
         }
       }
@@ -88,8 +124,8 @@ __device__ __forceinline__ void stage_kv_f32(
       const int t = i / D, d = i % D;
       const int64_t off = (int64_t)pg[t / bs] * page_stride +
                           (int64_t)(t % bs) * tok_stride + head_off + d;
-      k_dst[t * k_ld + d] = to_f32(k_pages[off]);
-      v_dst[t * v_ld + d] = to_f32(v_pages[off]);
+      k_dst[t * k_ld + d] = page_f32(k_pages[off], k_sc, t / bs);
+      v_dst[t * v_ld + d] = page_f32(v_pages[off], v_sc, t / bs);
     }
   }
 }

@@ -1,9 +1,12 @@
 // Chunked suffix-prefill attention over the paged KV pool: C queries per
 // sequence at absolute positions q_pos attend causally (kv_pos <= q_pos)
-// to the cached prefix and the chunk's own, already written, keys.
+// to the cached prefix and the chunk's own, already written, keys. The
+// pool is float / bf16 (paged_prefill_attention) or int8 with one f32
+// scale per (page, kv head) (paged_prefill_attention_quant).
 //
 // Replaces (Pallas, TPU):
-//   paged_prefill_attention  <- src/repro/kernels/paged_prefill.py:290
+//   paged_prefill_attention        <- src/repro/kernels/paged_prefill.py:290
+//   paged_prefill_attention_quant  <- src/repro/kernels/paged_prefill.py:230
 //
 // Bound on the H100: memory at serving chunk sizes. The least traffic is
 // each sequence's K and V up to its last query position read once, plus
@@ -27,6 +30,13 @@
 // q_pos = -1 finish at l = 0 and write zeros. Keys past the tile's largest
 // q_pos are never read. Offsets are int64_t.
 //
+// int8 pages (paged_prefill_attention_quant): the same kernel with the
+// page type as a template parameter, as in paged_attention.cu. Each tile
+// page's two scales are read once, beside its page id, and the staging
+// step dequantizes (float(q) * scale, one f32 product rounded once); the
+// rest is the float kernel's arithmetic, QT query rows per block included.
+// The 16-byte vector path needs D % 16 == 0 for int8 pages.
+//
 // What the simple design leaves: every query tile of a sequence re-reads
 // its keys (C / QT times), scores and values are plain f32 FMAs instead of
 // wgmma on bf16 tiles, and tiles are staged synchronously; a tensor-core
@@ -36,13 +46,16 @@
 constexpr int PP_THREADS = 256;
 constexpr int PP_TILE_TOKENS = 64;
 
-template <typename T, int MAXG>
+// T: query and output type; P: page type (T, or int8_t with scales)
+template <typename T, typename P, int MAXG>
 __global__ void __launch_bounds__(PP_THREADS) paged_prefill_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int32_t* __restrict__ tables,
+    const T* __restrict__ q, const P* __restrict__ k_pages,
+    const P* __restrict__ v_pages, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
     const int32_t* __restrict__ q_pos, T* __restrict__ out, int chunk,
     int num_pages, int block_size, int tile_pages, int n_kv, int group,
     int head_dim, int q_tile, float scale, int vec) {
+  constexpr bool QUANT = std::is_same<P, int8_t>::value;
   extern __shared__ __align__(16) float smem[];
   const int G = group, D = head_dim, bs = block_size, QT = q_tile;
   const int TT = tile_pages * bs;    // keys per tile
@@ -59,6 +72,9 @@ __global__ void __launch_bounds__(PP_THREADS) paged_prefill_kernel(
   float* a_s = l_s + R;              // (R,)
   int* qp_s = reinterpret_cast<int*>(a_s + R);  // (QT,)
   int* pg_s = qp_s + QT;                        // (tile_pages,)
+  // (tile_pages,) K and V scales of the tile's pages (int8 pages only)
+  float* ksc_s = reinterpret_cast<float*>(pg_s + tile_pages);
+  float* vsc_s = ksc_s + tile_pages;
 
   const int j0 = blockIdx.x * QT;
   const int kvh = blockIdx.y;
@@ -97,11 +113,16 @@ __global__ void __launch_bounds__(PP_THREADS) paged_prefill_kernel(
     const int valid = min(TT, n_tok - t0);
     for (int i = tid; i < tile_pages; i += blockDim.x) {
       const int p = t0 / bs + i;
-      pg_s[i] = p < num_pages ? tbl[p] : 0;
+      const int pg = p < num_pages ? tbl[p] : 0;
+      pg_s[i] = pg;
+      if constexpr (QUANT) {
+        ksc_s[i] = k_scale[(int64_t)pg * n_kv + kvh];
+        vsc_s[i] = v_scale[(int64_t)pg * n_kv + kvh];
+      }
     }
     __syncthreads();
-    stage_kv_f32<T>(k_s, KLD, v_s, D, k_pages, v_pages, pg_s, valid, bs,
-                    page_stride, tok_stride, head_off, D, vec);
+    stage_kv_f32<P>(k_s, KLD, v_s, D, k_pages, v_pages, pg_s, ksc_s, vsc_s,
+                    valid, bs, page_stride, tok_stride, head_off, D, vec);
     __syncthreads();
 
     // scores: one thread per (query, key); each float4 of the key is
@@ -207,12 +228,12 @@ __global__ void __launch_bounds__(PP_THREADS) paged_prefill_kernel(
   }
 }
 
-template <typename T, int MAXG>
+template <typename T, typename P, int MAXG>
 static int launch(const void* q, const void* k, const void* v,
-                  const void* tables, const void* q_pos, void* out,
-                  int64_t batch, int chunk, int num_pages, int block_size,
-                  int n_kv, int group, int head_dim, int q_tile, float scale,
-                  cudaStream_t s) {
+                  const float* ks, const float* vs, const void* tables,
+                  const void* q_pos, void* out, int64_t batch, int chunk,
+                  int num_pages, int block_size, int n_kv, int group,
+                  int head_dim, int q_tile, float scale, cudaStream_t s) {
   const int tile_pages = block_size >= PP_TILE_TOKENS
                              ? 1 : PP_TILE_TOKENS / block_size;
   const size_t R = (size_t)q_tile * group, D = head_dim;
@@ -220,40 +241,50 @@ static int launch(const void* q, const void* k, const void* v,
   const size_t smem =
       sizeof(float) * (R * D + TT * (D + 4) + TT * D + R * TT + R * D +
                        3 * R) +
-      sizeof(int) * ((size_t)q_tile + tile_pages);
+      sizeof(int) * ((size_t)q_tile + tile_pages) +
+      (std::is_same<P, int8_t>::value ? 2 * sizeof(float) * tile_pages : 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_kernel<T, MAXG>,
+        paged_prefill_kernel<T, P, MAXG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int vec = (D * sizeof(T)) % 16 == 0 && (uintptr_t)k % 16 == 0 &&
+  const int vec = (D * sizeof(P)) % 16 == 0 && (uintptr_t)k % 16 == 0 &&
                   (uintptr_t)v % 16 == 0;
   const dim3 grid((unsigned)((chunk + q_tile - 1) / q_tile), (unsigned)n_kv,
                   (unsigned)batch);
-  paged_prefill_kernel<T, MAXG><<<grid, PP_THREADS, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)tables,
+  paged_prefill_kernel<T, P, MAXG><<<grid, PP_THREADS, smem, s>>>(
+      (const T*)q, (const P*)k, (const P*)v, ks, vs, (const int32_t*)tables,
       (const int32_t*)q_pos, (T*)out, chunk, num_pages, block_size,
       tile_pages, n_kv, group, head_dim, q_tile, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 static int launch_group(const void* q, const void* k, const void* v,
+                        const float* ks, const float* vs,
                         const void* tables, const void* q_pos, void* out,
                         int64_t batch, int chunk, int num_pages,
                         int block_size, int n_kv, int group, int head_dim,
                         int q_tile, float scale, cudaStream_t s) {
   if (group <= 4)
-    return launch<T, 4>(q, k, v, tables, q_pos, out, batch, chunk,
-                        num_pages, block_size, n_kv, group, head_dim, q_tile,
-                        scale, s);
+    return launch<T, P, 4>(q, k, v, ks, vs, tables, q_pos, out, batch, chunk,
+                           num_pages, block_size, n_kv, group, head_dim,
+                           q_tile, scale, s);
   if (group <= 8)
-    return launch<T, 8>(q, k, v, tables, q_pos, out, batch, chunk,
-                        num_pages, block_size, n_kv, group, head_dim, q_tile,
-                        scale, s);
-  return launch<T, 16>(q, k, v, tables, q_pos, out, batch, chunk, num_pages,
-                       block_size, n_kv, group, head_dim, q_tile, scale, s);
+    return launch<T, P, 8>(q, k, v, ks, vs, tables, q_pos, out, batch, chunk,
+                           num_pages, block_size, n_kv, group, head_dim,
+                           q_tile, scale, s);
+  return launch<T, P, 16>(q, k, v, ks, vs, tables, q_pos, out, batch, chunk,
+                          num_pages, block_size, n_kv, group, head_dim,
+                          q_tile, scale, s);
+}
+
+static int check_args(int q_tile, int group, int head_dim, int block_size) {
+  if (q_tile < 1 || group < 1 || group > 16 || head_dim % 4 != 0 ||
+      block_size % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 extern "C" int paged_prefill_attention(
@@ -262,16 +293,35 @@ extern "C" int paged_prefill_attention(
     int chunk, int num_pages, int block_size, int n_kv, int group,
     int head_dim, int q_tile, float scale, int dtype, void* stream) {
   if (batch <= 0 || chunk <= 0) return 0;
-  if (q_tile < 1 || group < 1 || group > 16 || head_dim % 4 != 0 ||
-      block_size % 4 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (int e = check_args(q_tile, group, head_dim, block_size)) return e;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DTYPE_BF16)
-    return launch_group<__nv_bfloat16>(q, k_pages, v_pages, tables, q_pos,
-                                       out, batch, chunk, num_pages,
-                                       block_size, n_kv, group, head_dim,
-                                       q_tile, scale, s);
-  return launch_group<float>(q, k_pages, v_pages, tables, q_pos, out, batch,
-                             chunk, num_pages, block_size, n_kv, group,
-                             head_dim, q_tile, scale, s);
+    return launch_group<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, tables, q_pos, out, batch,
+        chunk, num_pages, block_size, n_kv, group, head_dim, q_tile, scale,
+        s);
+  return launch_group<float, float>(
+      q, k_pages, v_pages, nullptr, nullptr, tables, q_pos, out, batch,
+      chunk, num_pages, block_size, n_kv, group, head_dim, q_tile, scale, s);
+}
+
+// int8 pages with f32 scales (N, Hkv); dtype is that of q and out
+extern "C" int paged_prefill_attention_quant(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* q_pos, void* out, int64_t batch, int chunk, int num_pages,
+    int block_size, int n_kv, int group, int head_dim, int q_tile,
+    float scale, int dtype, void* stream) {
+  if (batch <= 0 || chunk <= 0) return 0;
+  if (int e = check_args(q_tile, group, head_dim, block_size)) return e;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* ks = (const float*)k_scale;
+  const float* vs = (const float*)v_scale;
+  if (dtype == DTYPE_BF16)
+    return launch_group<__nv_bfloat16, int8_t>(
+        q, k_pages, v_pages, ks, vs, tables, q_pos, out, batch, chunk,
+        num_pages, block_size, n_kv, group, head_dim, q_tile, scale, s);
+  return launch_group<float, int8_t>(
+      q, k_pages, v_pages, ks, vs, tables, q_pos, out, batch, chunk,
+      num_pages, block_size, n_kv, group, head_dim, q_tile, scale, s);
 }

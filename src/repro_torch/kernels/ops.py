@@ -1,16 +1,20 @@
-"""Public wrappers for the serving-path kernels.
+"""Public wrappers for the port's kernels, under the names and argument
+orders of the JAX package's ``repro.kernels.ops``: the serving path, the
+int8 host tier, attention over int8 pools and the single-layer block
+copies.
 
 Each wrapper dispatches on the device of its tensors. On the CPU it runs
 the plain PyTorch version from ``ref``; on a CUDA tensor it checks device,
-dtype (float32 or bfloat16 pools; int8 payloads with float32 scales for
-the int8 host tier), shape and contiguity, allocates any output
+dtype (float32 or bfloat16 pools and queries; int8 payloads and pages with
+float32 scales), shape and contiguity, allocates any output
 with ``torch.empty``, launches its hand-written kernel from ``csrc/`` on
 the current stream, and raises if the launch is refused. It never falls
 back to the plain version on the card.
 
 The write wrappers (``kv_token_write``, ``kv_chunk_write``,
-``block_scatter_layers``, ``block_scatter_dequant_layers``) update the
-pools **in place** and return them.
+``block_scatter``, ``block_scatter_layers``,
+``block_scatter_dequant_layers``) update the pools **in place** and
+return them.
 
 ``launches[name]`` counts the kernel launches of each wrapper (CPU calls
 are not counted); ``reset_launches`` sets every count to 0.
@@ -30,7 +34,8 @@ KERNELS = ("kv_token_write", "paged_attention", "kv_chunk_write",
            "paged_prefill_attention", "block_gather_layers",
            "block_scatter_layers", "block_gather_quant_layers",
            "block_scatter_dequant_layers", "kv_block_quant",
-           "kv_block_dequant")
+           "kv_block_dequant", "paged_attention_quant",
+           "paged_prefill_attention_quant", "block_gather", "block_scatter")
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # query rows per paged-prefill thread block
@@ -64,6 +69,15 @@ _SIGNATURES = {
                                        _P]),
     "kv_block_dequant": ("block_quant", [_P, _P, _P, _I64, _I, _I, _I, _I,
                                          _P]),
+    "paged_attention_quant": ("paged_attention",
+                              [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
+                               _I, _I, _I, _F, _I, _P]),
+    "paged_prefill_attention_quant": ("paged_prefill",
+                                      [_P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                                       _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                       _P]),
+    "block_gather": ("block_copy", [_P, _P, _P, _I64, _I64, _I64, _P]),
+    "block_scatter": ("block_copy", [_P, _P, _P, _I64, _I64, _I64, _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -174,8 +188,22 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
         return R.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                      context_lens)
     code = _check_pools(name, k_pages, v_pages)
-    _, bs, hkv, d = k_pages.shape
     _check(name, "q", q, 3, k_pages.dtype)
+    b, bs, hkv, g, d = _check_decode(name, q, k_pages, block_tables,
+                                     context_lens)
+    out = torch.empty_like(q)
+    if b:
+        _launch(name, q.device, q.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), block_tables.data_ptr(),
+                context_lens.data_ptr(), out.data_ptr(), b,
+                block_tables.shape[1], bs, hkv, g, d, 1.0 / math.sqrt(d),
+                code)
+    return out
+
+
+def _check_decode(name, q, pages, block_tables, context_lens):
+    """Shapes of a decode attention call; returns (B, bs, Hkv, G, D)."""
+    _, bs, hkv, d = pages.shape
     _check(name, "block_tables", block_tables, 2, torch.int32)
     _check(name, "context_lens", context_lens, 1, torch.int32)
     b, h, _ = q.shape
@@ -185,14 +213,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
     g = h // hkv
     _require(name, g <= 16 and d <= 256 and bs <= 256,
              "needs H/Hkv <= 16, D <= 256 and bs <= 256")
-    out = torch.empty_like(q)
-    if b:
-        _launch(name, q.device, q.data_ptr(), k_pages.data_ptr(),
-                v_pages.data_ptr(), block_tables.data_ptr(),
-                context_lens.data_ptr(), out.data_ptr(), b,
-                block_tables.shape[1], bs, hkv, g, d, 1.0 / math.sqrt(d),
-                code)
-    return out
+    return b, bs, hkv, g, d
 
 
 # ---------------------------------------------------------------------------
@@ -242,8 +263,22 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_pos):
         return R.paged_prefill_attention_ref(q, k_pages, v_pages,
                                              block_tables, q_pos)
     code = _check_pools(name, k_pages, v_pages)
-    _, bs, hkv, d = k_pages.shape
     _check(name, "q", q, 4, k_pages.dtype)
+    b, c, bs, hkv, g, d = _check_prefill(name, q, k_pages, block_tables,
+                                         q_pos)
+    out = torch.empty_like(q)
+    if b and c:
+        _launch(name, q.device, q.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), block_tables.data_ptr(),
+                q_pos.data_ptr(), out.data_ptr(), b, c,
+                block_tables.shape[1], bs, hkv, g, d, PREFILL_Q_TILE,
+                1.0 / math.sqrt(d), code)
+    return out
+
+
+def _check_prefill(name, q, pages, block_tables, q_pos):
+    """Shapes of a prefill attention call; returns (B, C, bs, Hkv, G, D)."""
+    _, bs, hkv, d = pages.shape
     _check(name, "block_tables", block_tables, 2, torch.int32)
     _check(name, "q_pos", q_pos, 2, torch.int32)
     b, c, h, _ = q.shape
@@ -252,18 +287,12 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_pos):
              "shape mismatch")
     _require(name, h // hkv <= 16 and d % 4 == 0 and bs % 4 == 0,
              "needs H/Hkv <= 16 and D, bs multiples of 4")
-    out = torch.empty_like(q)
-    if b and c:
-        _launch(name, q.device, q.data_ptr(), k_pages.data_ptr(),
-                v_pages.data_ptr(), block_tables.data_ptr(),
-                q_pos.data_ptr(), out.data_ptr(), b, c,
-                block_tables.shape[1], bs, hkv, h // hkv, d, PREFILL_Q_TILE,
-                1.0 / math.sqrt(d), code)
-    return out
+    return b, c, bs, hkv, h // hkv, d
 
 
 # ---------------------------------------------------------------------------
-# migration: B5 block_gather_layers, B6 block_scatter_layers
+# migration: B5 block_gather_layers, B6 block_scatter_layers, and one
+# layer's pool: B13a block_gather, B13b block_scatter
 # ---------------------------------------------------------------------------
 
 def _check_layers(name, pools, indices):
@@ -307,6 +336,39 @@ def block_scatter_layers(pools, indices, staging):
         _launch(name, pools.device, pools.data_ptr(), staging.data_ptr(),
                 indices.data_ptr(), nl, n, m, run)
     return pools
+
+
+def block_gather(pages, indices):
+    """Gather blocks ``indices`` (M,) int32 of one layer's pool
+    (N, bs, Hkv, D) into a new staging tensor (M, bs, Hkv, D)."""
+    name = "block_gather"
+    if _on_cpu(name, pages, indices):
+        return R.block_gather_ref(pages, indices)
+    _check(name, "pages", pages, 4)
+    _, n, m, run = _check_layers(name, pages[None], indices)
+    out = torch.empty((m,) + tuple(pages.shape[1:]), dtype=pages.dtype,
+                      device=pages.device)
+    if m:
+        _launch(name, pages.device, pages.data_ptr(), out.data_ptr(),
+                indices.data_ptr(), n, m, run)
+    return out
+
+
+def block_scatter(pages, indices, staging):
+    """Scatter staging (M, bs, Hkv, D) into blocks ``indices`` (M,) int32
+    of one layer's pool (N, bs, Hkv, D), in place. Returns ``pages``."""
+    name = "block_scatter"
+    if _on_cpu(name, pages, indices, staging):
+        return R.block_scatter_ref(pages, indices, staging)
+    _check(name, "pages", pages, 4)
+    _, n, m, run = _check_layers(name, pages[None], indices)
+    _check(name, "staging", staging, 4, pages.dtype)
+    _require(name, staging.shape == (m,) + tuple(pages.shape[1:]),
+             "staging shape mismatch")
+    if m:
+        _launch(name, pages.device, pages.data_ptr(), staging.data_ptr(),
+                indices.data_ptr(), n, m, run)
+    return pages
 
 
 # ---------------------------------------------------------------------------
@@ -401,4 +463,79 @@ def kv_block_dequant(q, scales, out_dtype=torch.float32):
     if m:
         _launch(name, q.device, q.data_ptr(), scales.data_ptr(),
                 out.data_ptr(), m, bs, hkv, d, _DTYPE_CODE[out_dtype])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# attention over int8 pools: B9 paged_attention_quant, B10
+# paged_prefill_attention_quant
+# ---------------------------------------------------------------------------
+
+def _check_int8_pools(name, q, q_ndim, k_pages, v_pages, k_scale, v_scale):
+    """float32 / bfloat16 q of ``q_ndim`` dims; int8 pools (N, bs, Hkv, D)
+    with float32 scales (N, Hkv). Returns q's dtype code."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
+    _check(name, "q", q, q_ndim)
+    _check(name, "k_pages", k_pages, 4, torch.int8)
+    _check(name, "v_pages", v_pages, 4, torch.int8)
+    _require(name, k_pages.shape == v_pages.shape, "k/v pool shapes differ")
+    want = (k_pages.shape[0], k_pages.shape[2])
+    for what, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check(name, what, sc, 2, torch.float32)
+        _require(name, tuple(sc.shape) == want,
+                 f"{what} shape {tuple(sc.shape)} != {want}")
+    return _DTYPE_CODE[q.dtype]
+
+
+def paged_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
+                          block_tables, context_lens):
+    """Decode attention over int8 pools: q (B, H, D) float32 or bfloat16
+    over k_pages/v_pages (N, bs, Hkv, D) int8 with scales (N, Hkv) float32,
+    dequantized as each page is fetched, through block_tables (B, P) int32
+    up to context_lens (B,) int32. Rows with context_lens = 0 give zeros.
+    Returns (B, H, D) in q's dtype."""
+    name = "paged_attention_quant"
+    if _on_cpu(name, q, k_pages, v_pages, k_scale, v_scale, block_tables,
+               context_lens):
+        return R.paged_attention_quant_ref(q, k_pages, v_pages, k_scale,
+                                           v_scale, block_tables,
+                                           context_lens)
+    code = _check_int8_pools(name, q, 3, k_pages, v_pages, k_scale, v_scale)
+    b, bs, hkv, g, d = _check_decode(name, q, k_pages, block_tables,
+                                     context_lens)
+    out = torch.empty_like(q)
+    if b:
+        _launch(name, q.device, q.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                block_tables.data_ptr(), context_lens.data_ptr(),
+                out.data_ptr(), b, block_tables.shape[1], bs, hkv, g, d,
+                1.0 / math.sqrt(d), code)
+    return out
+
+
+def paged_prefill_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
+                                  block_tables, q_pos):
+    """Chunked suffix-prefill attention over int8 pools: q (B, C, H, D)
+    float32 or bfloat16 at positions q_pos (B, C) int32 over k_pages/v_pages
+    (N, bs, Hkv, D) int8 with scales (N, Hkv) float32 through block_tables
+    (B, P) int32; q_pos = -1 rows give zeros. Returns (B, C, H, D) in q's
+    dtype."""
+    name = "paged_prefill_attention_quant"
+    if _on_cpu(name, q, k_pages, v_pages, k_scale, v_scale, block_tables,
+               q_pos):
+        return R.paged_prefill_attention_quant_ref(q, k_pages, v_pages,
+                                                   k_scale, v_scale,
+                                                   block_tables, q_pos)
+    code = _check_int8_pools(name, q, 4, k_pages, v_pages, k_scale, v_scale)
+    b, c, bs, hkv, g, d = _check_prefill(name, q, k_pages, block_tables,
+                                         q_pos)
+    out = torch.empty_like(q)
+    if b and c:
+        _launch(name, q.device, q.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(), b,
+                c, block_tables.shape[1], bs, hkv, g, d, PREFILL_Q_TILE,
+                1.0 / math.sqrt(d), code)
     return out

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the kernels on the serving path and of the
-int8 host tier's quantize / dequantize kernels.
+"""Plain PyTorch versions of the port's kernels: the serving path, the
+int8 host tier's quantize / dequantize kernels, attention over int8
+pools, and the single-layer block copies.
 
 Each function computes what its CUDA kernel in ``csrc/`` computes, with
 ordinary tensor ops and no tiling: a gather of every table page, an f32
@@ -9,12 +10,13 @@ card they serve only as the reference the kernels are checked against.
 They follow the kernels' behaviour where it differs from the JAX oracles
 (``repro/kernels/ref.py``):
 
-* ``paged_attention_ref`` gives **zeros** for a row with ``context_lens=0``
-  (the JAX oracle gives a uniform average there; its Pallas kernel, like
-  the CUDA one, gives zeros, and padded decode rows rely on that);
-* the write functions update the pools **in place** (JAX returns new
-  arrays), and ``kv_chunk_write_ref`` skips tokens past ``wcount`` instead
-  of sending them to the scratch slot.
+* ``paged_attention_ref`` and ``paged_attention_quant_ref`` give
+  **zeros** for a row with ``context_lens=0`` (the JAX oracle gives a
+  uniform average there; its Pallas kernels, like the CUDA ones, give
+  zeros, and padded decode rows rely on that);
+* the write and scatter functions update the pools **in place** (JAX
+  returns new arrays), and ``kv_chunk_write_ref`` skips tokens past
+  ``wcount`` instead of sending them to the scratch slot.
 
 The quantizers follow ``quantize_block_ref`` of the JAX package bit for
 bit: ``scale = max(amax / 127, 1e-8)`` per kv head over each block's
@@ -84,6 +86,38 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, q_pos):
     probs = _masked_probs(scores, mask)
     out = torch.einsum("bckgt,btkd->bckgd", probs, v)
     return out.reshape(b, c, h, d).to(q.dtype)
+
+
+def paged_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
+                              block_tables, context_lens):
+    """Decode attention over int8 pools (N, bs, Hkv, D) with float32
+    scales (N, Hkv): dequantize, then :func:`paged_attention_ref`."""
+    return paged_attention_ref(q, dequantize_block_ref(k_pages, k_scale),
+                               dequantize_block_ref(v_pages, v_scale),
+                               block_tables, context_lens)
+
+
+def paged_prefill_attention_quant_ref(q, k_pages, v_pages, k_scale,
+                                      v_scale, block_tables, q_pos):
+    """Chunked prefill attention over int8 pools (N, bs, Hkv, D) with
+    float32 scales (N, Hkv): dequantize, then
+    :func:`paged_prefill_attention_ref`."""
+    return paged_prefill_attention_ref(
+        q, dequantize_block_ref(k_pages, k_scale),
+        dequantize_block_ref(v_pages, v_scale), block_tables, q_pos)
+
+
+def block_gather_ref(pages, indices):
+    """Single-layer gather: pages (N, bs, Hkv, D), indices (M,) ->
+    (M, bs, Hkv, D)."""
+    return pages[indices.long()]
+
+
+def block_scatter_ref(pages, indices, staging):
+    """Single-layer scatter of staging (M, bs, Hkv, D) into blocks
+    ``indices`` of pages (N, bs, Hkv, D), in place. Returns ``pages``."""
+    pages[indices.long()] = staging.to(pages.dtype)
+    return pages
 
 
 def block_gather_layers_ref(pools, indices):

@@ -9,7 +9,9 @@ and plain version both accumulate in float32 and round once, so they may
 differ by one bfloat16 step of the output (2**-7 of its size at most).
 Two cases run at Qwen2.5-14B's serve-pool size, where byte offsets pass
 2**31 and only 64-bit offset arithmetic gives the right blocks. The int8
-quantize and dequantize kernels are exact against their plain versions.
+quantize and dequantize kernels are exact against their plain versions,
+and so are the single-layer block copies; attention over int8 pools
+takes the attention kernels' tolerances.
 """
 import numpy as np
 import pytest
@@ -243,3 +245,131 @@ def test_int8_launches_are_counted_and_bad_inputs_raise(dev):
         ops.kv_block_dequant(q2, s2, torch.float16)
     with pytest.raises(ValueError, match="scales shape"):
         ops.kv_block_dequant(q2, s2[:1])
+
+
+# ---------------------------------------------------------------------------
+# attention over int8 pools (B9, B10); single-layer block copies (B13a/b)
+# ---------------------------------------------------------------------------
+
+def _int8_pool(gen, shape, dev):
+    """int8 pages and (N, Hkv) float32 scales, quantized by the plain
+    version from normal pages whose magnitude differs by page and kv head
+    (0.3x to 3x), so each (page, kv head) has its own scale."""
+    n, _, hkv, _ = shape
+    mag = 10.0 ** (torch.rand((n, 1, hkv, 1), generator=gen, device=dev)
+                   - 0.5)
+    return R.quantize_block_ref(
+        torch.randn(shape, generator=gen, device=dev) * mag)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,d,bs,p", [
+    (8, 40, 8, 128, 16, 64),     # Qwen2.5-14B decode
+    (3, 32, 2, 64, 16, 5),       # G = 16
+    (2, 4, 4, 16, 8, 3),
+    (3, 6, 2, 24, 8, 4),         # D % 16 != 0: scalar int8 staging
+])
+def test_paged_attention_quant(dev, dt, b, h, hkv, d, bs, p):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n = p * b + 2
+    q = _rand(gen, (b, h, d), dt, dev)
+    kq, ks = _int8_pool(gen, (n, bs, hkv, d), dev)
+    vq, vs = _int8_pool(gen, (n, bs, hkv, d), dev)
+    bt = torch.randint(0, n, (b, p), generator=gen, device=dev,
+                       dtype=torch.int32)
+    lens = np.random.default_rng(7).integers(1, p * bs + 1, b)
+    lens[-1] = 0                                        # padded row
+    cl = _ints(lens, dev)
+    got = ops.paged_attention_quant(q, kq, vq, ks, vs, bt, cl)
+    want = R.paged_attention_quant_ref(q, kq, vq, ks, vs, bt, cl)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol(dt))
+    assert not got[-1].any()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,c,h,hkv,d,bs,p", [
+    (8, 32, 40, 8, 128, 16, 64),  # Qwen2.5-14B prefill chunk
+    (2, 12, 32, 2, 64, 8, 6),     # G = 16
+    (2, 5, 4, 4, 16, 8, 4),
+    (3, 7, 6, 2, 24, 8, 4),       # D % 16 != 0: scalar int8 staging
+])
+def test_paged_prefill_attention_quant(dev, dt, b, c, h, hkv, d, bs, p):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n = p * b + 2
+    q = _rand(gen, (b, c, h, d), dt, dev)
+    kq, ks = _int8_pool(gen, (n, bs, hkv, d), dev)
+    vq, vs = _int8_pool(gen, (n, bs, hkv, d), dev)
+    bt = torch.randint(0, n, (b, p), generator=gen, device=dev,
+                       dtype=torch.int32)
+    rng = np.random.default_rng(8)
+    qpos = np.full((b, c), -1)
+    for i in range(b - 1):                              # last row padded
+        start = int(rng.integers(0, p * bs - c))
+        valid = int(rng.integers(1, c + 1))
+        qpos[i, :valid] = start + np.arange(valid)
+    qp = _ints(qpos, dev)
+    got = ops.paged_prefill_attention_quant(q, kq, vq, ks, vs, bt, qp)
+    want = R.paged_prefill_attention_quant_ref(q, kq, vq, ks, vs, bt, qp)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol(dt))
+    assert not got[torch.as_tensor(qpos < 0, device=dev)].any()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n,bs,hkv,d", [
+    (2049, 16, 8, 128),          # one layer of Qwen2.5-14B's serve pool
+    (50, 3, 1, 5),               # 4-byte (f32) and 2-byte (bf16) copies
+])
+def test_block_gather_scatter(dev, dt, n, bs, hkv, d):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    pages = _rand(gen, (n, bs, hkv, d), dt, dev)
+    idx = _ints([n - 1, 7, 1, n - 2, 20], dev)          # scratch, last live
+    got = ops.block_gather(pages, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, R.block_gather_ref(pages, idx))
+    st = _rand(gen, (5, bs, hkv, d), dt, dev)
+    dst = _ints([0, n - 1, 5, 11, n - 2], dev)
+    want = R.block_scatter_ref(pages.clone(), dst, st)
+    out = ops.block_scatter(pages, dst, st)
+    torch.cuda.synchronize()
+    assert out is pages and torch.equal(pages, want)
+
+
+def test_int8_attention_and_block_copy_launches_and_bad_inputs(dev):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q = _rand(gen, (2, 8, 64), "bf16", dev)
+    qc = _rand(gen, (2, 4, 8, 64), "bf16", dev)
+    kq, ks = _int8_pool(gen, (6, 16, 2, 64), dev)
+    vq, vs = _int8_pool(gen, (6, 16, 2, 64), dev)
+    bt, cl = _ints([[0, 1], [2, 3]], dev), _ints([20, 5], dev)
+    qp = _ints([[0, 1, 2, 3], [10, 11, -1, -1]], dev)
+    pages = _rand(gen, (6, 16, 2, 64), "bf16", dev)
+    ops.reset_launches()
+    ops.paged_attention_quant(q, kq, vq, ks, vs, bt, cl)
+    ops.paged_prefill_attention_quant(qc, kq, vq, ks, vs, bt, qp)
+    st = ops.block_gather(pages, _ints([1, 4], dev))
+    ops.block_scatter(pages, _ints([0, 5], dev), st)
+    torch.cuda.synchronize()
+    for name in ("paged_attention_quant", "paged_prefill_attention_quant",
+                 "block_gather", "block_scatter"):
+        assert ops.launches[name] == 1, name
+    for fn, qq, pos in ((ops.paged_attention_quant, q, cl),
+                        (ops.paged_prefill_attention_quant, qc, qp)):
+        with pytest.raises(TypeError, match="q must be"):     # int8 q
+            fn(qq.to(torch.int8), kq, vq, ks, vs, bt, pos)
+        with pytest.raises(TypeError):                        # f16 scales
+            fn(qq, kq, vq, ks.half(), vs, bt, pos)
+        with pytest.raises(ValueError, match="v_scale shape"):
+            fn(qq, kq, vq, ks, vs[:3].contiguous(), bt, pos)
+        with pytest.raises(TypeError):                        # bf16 pages
+            fn(qq, kq.to(torch.bfloat16), vq, ks, vs, bt, pos)
+    with pytest.raises(TypeError):                            # ids not int32
+        ops.block_gather(pages, torch.tensor([1], device=dev))
+    with pytest.raises(ValueError, match="staging shape"):
+        ops.block_scatter(pages, _ints([0, 5], dev), st[:1])
+    for name in ("paged_attention_quant", "paged_prefill_attention_quant",
+                 "block_gather", "block_scatter"):
+        assert ops.launches[name] == 1, name

@@ -11,6 +11,12 @@ bit; against the jitted Pallas kernels a payload element may be one step
 off and a scale one ulp (``rtol=1e-6``): under ``jit`` XLA turns the
 oracle's ``amax / 127`` into ``amax * (1/127)``. Dequantizing is exact
 against both.
+
+Attention over int8 pools is held to the Pallas kernels and the JAX
+oracles at the same 3e-5 (float32) / 2e-2 (bfloat16), and, like
+``test_quant_kernels.py``, within ``LOGITS_TOL`` of full-precision
+attention on the pools before quantization. The single-layer block
+copies are exact.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -283,6 +289,127 @@ def test_block_gather_quant_scatter_dequant_layers(dt, nl, n, bs, hkv, d,
     untouched = [i for i in range(n) if i not in dst]
     np.testing.assert_array_equal(npf(got)[:, untouched], orig[:, untouched])
     assert_round_trip(got[:, dst], orig[:, src], s, (nl, len(src), 1, hkv, 1))
+
+
+# ---------------------------------------------------------------------------
+# attention over int8 pools (B9, B10); single-layer block copies (B13a/b)
+# ---------------------------------------------------------------------------
+
+LOGITS_TOL = dict(atol=7e-2, rtol=7e-2)       # as test_quant_kernels.py
+
+
+def int8_pool(rng, shape):
+    """Unit-normal pages quantized by the JAX oracle: (the float pages as a
+    JAX array, (JAX, torch) int8 pages, (JAX, torch) float32 scales)."""
+    x = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
+    q, s = (np.asarray(a) for a in JR.quantize_block_ref(x))
+    return x, (jnp.asarray(q), torch.from_numpy(q.copy())), \
+        (jnp.asarray(s), torch.from_numpy(s.copy()))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,d,bs,p", [     # test_quant_kernels.py
+    (1, 4, 4, 32, 8, 3),
+    (3, 8, 2, 64, 16, 5),
+    (2, 5, 5, 16, 8, 4),
+])
+def test_paged_attention_quant(dt, b, h, hkv, d, bs, p):
+    rng = np.random.default_rng(7)
+    n = p * b + 4
+    q, tq = pair(rng.standard_normal((b, h, d)), dt)
+    kf, (kq, tkq), (ks, tks) = int8_pool(rng, (n, bs, hkv, d))
+    vf, (vq, tvq), (vs, tvs) = int8_pool(rng, (n, bs, hkv, d))
+    bt, tbt = ints(rng.integers(0, n, (b, p)))
+    cl, tcl = ints(rng.integers(1, p * bs + 1, b))
+    got = ops.paged_attention_quant(tq, tkq, tvq, tks, tvs, tbt, tcl)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    pallas = jops.paged_attention_quant(q, kq, vq, ks, vs, bt, cl)
+    oracle = JR.paged_attention_quant_ref(q, kq, vq, ks, vs, bt, cl)
+    np.testing.assert_allclose(npf(got), npf(pallas), **tol(dt))
+    np.testing.assert_allclose(npf(got), npf(oracle), **tol(dt))
+    full = JR.paged_attention_ref(q, kf, vf, bt, cl)
+    np.testing.assert_allclose(npf(got), npf(full), **LOGITS_TOL)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,c,h,hkv,d,bs,p", [   # test_quant_kernels.py
+    (1, 4, 4, 4, 32, 8, 3),
+    (3, 8, 8, 2, 64, 16, 5),
+    (2, 5, 5, 5, 16, 8, 4),
+])
+def test_paged_prefill_attention_quant(dt, b, c, h, hkv, d, bs, p):
+    rng = np.random.default_rng(8)
+    n = p * b + 4
+    q, tq = pair(rng.standard_normal((b, c, h, d)), dt)
+    kf, (kq, tkq), (ks, tks) = int8_pool(rng, (n, bs, hkv, d))
+    vf, (vq, tvq), (vs, tvs) = int8_pool(rng, (n, bs, hkv, d))
+    bt, tbt = ints(rng.integers(0, n, (b, p)))
+    qp, tqp = ints(rng.integers(-1, p * bs, (b, c)))
+    got = ops.paged_prefill_attention_quant(tq, tkq, tvq, tks, tvs, tbt,
+                                            tqp)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    pallas = jops.paged_prefill_attention_quant(q, kq, vq, ks, vs, bt, qp)
+    oracle = JR.paged_prefill_attention_quant_ref(q, kq, vq, ks, vs, bt, qp)
+    np.testing.assert_allclose(npf(got), npf(pallas), **tol(dt))
+    np.testing.assert_allclose(npf(got), npf(oracle), **tol(dt))
+    full = JR.paged_prefill_attention_ref(q, kf, vf, bt, qp)
+    np.testing.assert_allclose(npf(got), npf(full), **LOGITS_TOL)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_int8_attention_padded_rows_are_zero(dt):
+    """Rows with context_lens = 0 (decode) and queries at q_pos = -1
+    (prefill) give exact zeros, as the Pallas kernels do (the JAX decode
+    oracle gives a uniform average there instead)."""
+    rng = np.random.default_rng(9)
+    b, c, h, hkv, d, bs, p = 3, 6, 8, 2, 32, 8, 4
+    n = p * b + 2
+    kf, (kq, tkq), (ks, tks) = int8_pool(rng, (n, bs, hkv, d))
+    vf, (vq, tvq), (vs, tvs) = int8_pool(rng, (n, bs, hkv, d))
+    bt, tbt = ints(rng.integers(0, n, (b, p)))
+    q, tq = pair(rng.standard_normal((b, h, d)), dt)
+    cl, tcl = ints([9, 0, p * bs])
+    got = ops.paged_attention_quant(tq, tkq, tvq, tks, tvs, tbt, tcl)
+    pallas = jops.paged_attention_quant(q, kq, vq, ks, vs, bt, cl)
+    np.testing.assert_allclose(npf(got), npf(pallas), **tol(dt))
+    assert not npf(got)[1].any() and not npf(pallas)[1].any()
+    assert npf(got)[[0, 2]].all()
+
+    qc, tqc = pair(rng.standard_normal((b, c, h, d)), dt)
+    qpos = np.full((b, c), -1, np.int32)
+    qpos[0, :4] = 3 + np.arange(4)            # a partly padded row
+    qpos[2] = p * bs - c + np.arange(c)       # a full row; row 1 all -1
+    qp, tqp = ints(qpos)
+    got = ops.paged_prefill_attention_quant(tqc, tkq, tvq, tks, tvs, tbt,
+                                            tqp)
+    pallas = jops.paged_prefill_attention_quant(qc, kq, vq, ks, vs, bt, qp)
+    np.testing.assert_allclose(npf(got), npf(pallas), **tol(dt))
+    dead = qpos < 0
+    assert not npf(got)[dead].any() and not npf(pallas)[dead].any()
+    assert npf(got)[~dead].all()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_block_gather_scatter(dt):
+    rng = np.random.default_rng(10)
+    n, bs, hkv, d = 10, 4, 2, 8
+    pages, tpages = pair(rng.standard_normal((n, bs, hkv, d)), dt)
+    idx, tidx = ints([n - 1, 3, 0, 6])        # unique, with the last block
+    got = ops.block_gather(tpages, tidx)
+    np.testing.assert_array_equal(npf(got), npf(jops.block_gather(pages,
+                                                                  idx)))
+    np.testing.assert_array_equal(npf(got), npf(JR.block_gather_ref(pages,
+                                                                    idx)))
+
+    st, tst = pair(rng.standard_normal((4, bs, hkv, d)), dt)
+    dst, tdst = ints([2, n - 1, 7, 5])
+    oracle = JR.block_scatter_ref(pages, dst, st)
+    pallas = jops.block_scatter(pages, dst, st)
+    got = ops.block_scatter(tpages, tdst, tst)
+    assert got is tpages                  # in place
+    np.testing.assert_array_equal(npf(got), npf(pallas))
+    np.testing.assert_array_equal(npf(got), npf(oracle))
+    np.testing.assert_array_equal(npf(got)[[2, n - 1, 7, 5]], npf(tst))
 
 
 def test_cpu_calls_are_not_counted_as_launches():

@@ -36,14 +36,26 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    card into an int8 pinned host pool, uploads dequantize on the card;
    B1-B4, B7 and B8 must have run, with at least one offload and one
    upload and wire bytes in whole int8 blocks; then the same timing;
-6. check: a small float32 model served on the card gives the same tokens
+6. families: Mamba2-130M (SSM) and Hymba-1.5B (hybrid: sliding-window
+   attention beside SSM heads) at full width and depth, random bf16
+   weights from seed 0, through ``models.model.prefill`` of 4 prompts of
+   2048 tokens and 32 greedy ``decode_step``s; launch counts are zeroed
+   just before and read just after, and the SSD scan (B14) must have run
+   once per layer, and for Hymba sliding-window attention (B15) too; the
+   logits must be finite; prefill and decode wall times, tokens per
+   second and peak memory are printed;
+7. check: a small float32 model served on the card gives the same tokens
    and offloads as the same model on the CPU through the kernels' plain
-   versions, with an fp16 and with an int8 host tier.
+   versions, with an fp16 and with an int8 host tier; and small float32
+   Mamba2 and Hymba models give the same prefill and decode logits and
+   caches on the card as on the CPU (1e-4).
 
 B9-B13b (``paged_attention_quant``, ``paged_prefill_attention_quant``,
 ``kv_block_quant``, ``kv_block_dequant``, ``block_gather``,
 ``block_scatter``) run in the kernel phase only: no serving path of the
-JAX package calls them, so their launches are those of phase 3.
+JAX package calls them, so their launches are those of phase 3. B14 and
+B15 are held and timed in phase 3 at the families phase's shapes (B14 at
+Mamba2's and at Hymba's); their launches are those of phase 6.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``. ``--out PATH`` also
@@ -111,7 +123,25 @@ KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
                      "src/repro/kernels/block_copy.py:22"),
     "block_scatter": ("src/repro_torch/kernels/csrc/block_copy.cu",
                       "src/repro/kernels/block_copy.py:175"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:64"),
+    "swa_attention": ("src/repro_torch/kernels/csrc/swa_attention.cu",
+                      "src/repro/kernels/swa_attention.py:66"),
 }
+
+# families phase: prompts, their length (twice Hymba's 1024-token window)
+# and greedy decode steps; the kernels each model's prefill must launch
+# once per layer
+FAM_B, FAM_S, FAM_STEPS = 4, 2048, 32
+FAMILY_KERNELS = {"mamba2_130m": ("ssd_scan",),
+                  "hymba_1_5b": ("ssd_scan", "swa_attention")}
+# B14 against its token-sequential plain version: the tolerance of the JAX
+# package's test_ssd_scan (the sums run in another order); B15 in bf16 may
+# differ from its plain version by one bf16 step of the output (2**-7 of
+# its size), and its early rows average few keys, so outputs reach ~4
+TOL_SSD = dict(atol=2e-3, rtol=2e-3)
+TOL_ONE_STEP = {"bf16": dict(atol=2e-3, rtol=8e-3),
+                "f32": dict(atol=3e-5, rtol=3e-5)}
 
 # the kernels each serve phase must launch
 SERVE_KERNELS = {
@@ -432,6 +462,71 @@ def kernel_cases(dt: str):
     return cases
 
 
+def family_kernel_cases(dt: str):
+    """B14 at Mamba2-130M's and at Hymba-1.5B's prefill shapes and B15 at
+    Hymba-1.5B's (heads repeated to MHA layout), as the families phase
+    calls them, in the same form as ``kernel_cases``. B14's operations are
+    those its data needs: the lower triangle of c b^T once per (row,
+    chunk), and per (row, head, chunk) the triangle of w x, c state^T and
+    the state update, on float32 data; B15's are 4 D per (query, visible
+    key) pair, on dt data."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    td = torch.bfloat16 if dt == "bf16" else torch.float32
+    es = torch.finfo(td).bits // 8
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    cases = []
+    for arch, variant in (("mamba2_130m", None), ("hymba_1_5b", "hymba")):
+        cfg = get_config(arch)
+        h, p, n, q = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_chunk)
+        x = randn(FAM_B, FAM_S, h, p).to(td)
+        dts = F.softplus(randn(FAM_B, FAM_S, h))
+        # A = -exp(A_log) as init_ssm sets it: -1 .. -H
+        a = dts * -torch.arange(1, h + 1, device=dev, dtype=torch.float32)
+        bm, cm = randn(FAM_B, FAM_S, n), randn(FAM_B, FAM_S, n)
+        tri, nc = q * (q + 1) // 2, FAM_S // q
+        cases.append(dict(
+            name="ssd_scan", variant=variant, kind="ssd", targets=(),
+            shape=f"{arch}: x ({FAM_B}, {FAM_S}, {h}, {p}), N {n}, Q {q}",
+            kernel=functools.partial(ops.ssd_scan, x, dts, a, bm, cm, q),
+            plain=functools.partial(R.ssd_scan_ref, x, dts, a, bm, cm),
+            plain_iters=3, library=None, library_call=NO_LIBRARY,
+            nbytes=(x.numel() * (es + 4) + 2 * dts.numel() * 4
+                    + 2 * bm.numel() * 4 + FAM_B * h * p * n * 4),
+            flops=2.0 * FAM_B * nc * (tri * n + h * (tri * p + 2 * q * p * n)),
+            ops_dt="f32"))
+
+    cfg = get_config("hymba_1_5b")
+    hq, d, w = cfg.num_heads, cfg.head_dim, cfg.sliding_window
+    qs, ks, vs = (randn(FAM_B, FAM_S, hq, d).to(td) for _ in "qkv")
+    i = torch.arange(FAM_S, device=dev)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    pairs = FAM_B * hq * sum(min(t + 1, w) for t in range(FAM_S))
+    cases.append(dict(
+        name="swa_attention", kind="attn", targets=(), tol=TOL_ONE_STEP[dt],
+        shape=f"hymba_1_5b: q/k/v ({FAM_B}, {FAM_S}, {hq}, {d}), window {w}",
+        kernel=lambda: ops.swa_attention(qs, ks, vs, w),
+        plain=lambda: R.swa_attention_ref(qs, ks, vs, w),
+        library=sdpa(qs.transpose(1, 2), ks.transpose(1, 2),
+                     vs.transpose(1, 2), band),
+        library_call="scaled_dot_product_attention with a band mask",
+        nbytes=4 * qs.numel() * es, flops=4.0 * d * pairs))
+    return cases
+
+
 def check_case(case: dict, dt: str) -> float:
     """Kernel and plain version on the same inputs; returns the max abs
     difference and raises if it is outside the tolerance. In-place writes
@@ -453,12 +548,19 @@ def check_case(case: dict, dt: str) -> float:
         bound = s[..., None, :, None] / 2 + x.abs() * 2.0 ** -22 + 1e-7
         assert bool((err <= bound).all()), f"{case['name']}: round trip"
         return 0.0
+    if case["kind"] == "ssd":
+        (y, st), (yr, sr) = case["kernel"](), case["plain"]()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, yr, **TOL_SSD)
+        torch.testing.assert_close(st, sr, **TOL_SSD)
+        return max(float((y - yr).abs().max()), float((st - sr).abs().max()))
     if case["kind"] in ("attn", "copy"):
         got, want = case["kernel"](), case["plain"]()
         torch.cuda.synchronize()
         if case["kind"] == "copy":
             assert torch.equal(got, want), case["name"]
-        torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **case.get("tol", TOL[dt]))
         return float((got.float() - want.float()).abs().max())
     targets = case["targets"]
     snap = [t.clone() for t in targets]
@@ -481,9 +583,13 @@ def check_case(case: dict, dt: str) -> float:
 def kernel_phase():
     rows = {}
     for dt in ("f32", "bf16"):
-        for case in kernel_cases(dt):
+        for case in kernel_cases(dt) + family_kernel_cases(dt):
             err = check_case(case, dt)
             row = rows.setdefault(case["name"], {"name": case["name"]})
+            if case.get("variant"):      # a second shape of the same kernel
+                row = row.setdefault(case["variant"], {})
+            if "shape" in case:
+                row["shape"] = case["shape"]
             row[f"max_abs_err_{dt}"] = err
             if "versus" in case:              # int8 error, information only
                 diff = case["kernel"]().float() - case["versus"]().float()
@@ -497,14 +603,18 @@ def kernel_phase():
             lib = case["library"]
             row.update(
                 ms=graph_ms(case["kernel"]), eager_ms=cuda_ms(case["kernel"]),
-                plain_ms=cuda_ms(case["plain"]),
+                plain_ms=cuda_ms(case["plain"],
+                                 iters=case.get("plain_iters", 50),
+                                 warmup=min(5, case.get("plain_iters", 5))),
                 library_ms=cuda_ms(lib) if lib is not None else None,
                 library_call=case["library_call"], nbytes=case["nbytes"],
                 flops=case["flops"])
             row["bound_ms"], row["bound_by"] = bound_ms(
                 case["nbytes"], case["flops"], case.get("ops_dt", dt))
             libs = f"{row['library_ms']:.4f}" if lib is not None else "-"
-            print(f"  {case['name']:28s} bf16 {row['ms']:.4f} ms  eager "
+            label = case["name"] + (f" ({case['variant']})"
+                                    if case.get("variant") else "")
+            print(f"  {label:28s} bf16 {row['ms']:.4f} ms  eager "
                   f"{row['eager_ms']:.4f}  plain {row['plain_ms']:.4f}  "
                   f"library {libs}"
                   f"  bound {row['bound_ms']:.4f} ({row['bound_by']})  "
@@ -671,8 +781,204 @@ def migration_times(card: str, cache, reps: int = 10) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: a small model on the card equals the same model on the CPU
+# phase 6: Mamba2-130M and Hymba-1.5B prefill and decode at full size
 # ---------------------------------------------------------------------------
+
+def family_run(cfg, params, tokens, steps: int):
+    """``prefill`` of ``tokens`` into a cache sized for ``steps`` more
+    tokens, then ``steps`` greedy ``decode_step``s. Returns (prefill
+    logits, decode logits per step, generated tokens, cache, prefill
+    seconds, decode seconds), both times ending in a synchronise."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    s = tokens.shape[1]
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, params, {"tokens": tokens}, s + steps)
+    if tokens.is_cuda:
+        torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    nxt = logits[:, 0].argmax(-1).to(torch.int32)
+    toks, step_logits = [nxt], []
+    t0 = time.perf_counter()
+    for step in range(steps):
+        lg, cache = M.decode_step(cfg, params, cache, nxt, s + step)
+        nxt = lg.argmax(-1).to(torch.int32)
+        step_logits.append(lg)
+        toks.append(nxt)
+    if tokens.is_cuda:
+        torch.cuda.synchronize()
+    return (logits, step_logits, torch.stack(toks, 1), cache, prefill_s,
+            time.perf_counter() - t0)
+
+
+def device_profile(fn, top: int = 8) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity)
+    and return its wall ms (profiler overhead included), the summed device
+    time of its device-side events (kernels, copies, memsets; one stream,
+    so their busy time) and the ``top`` of them by device time. CPU-side
+    operator rows, which also carry their kernels' device time, are not
+    counted. A profiler that records no device event gives ``device_ms:
+    None`` (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.key, e.count))
+    rows.sort(reverse=True)
+    dev = sum(r[0] for r in rows)
+    return dict(profiled_wall_ms=wall, device_ms=dev if rows else None,
+                top=[dict(name=k[:80], device_ms=ms, calls=n)
+                     for ms, k, n in rows[:top]])
+
+
+def families_phase(card: str):
+    """Each family model once at full width and depth; returns its results
+    and the launch counts of its run."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    results, counts = {}, {}
+    for arch, want in FAMILY_KERNELS.items():
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, gen, "cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (FAM_B, FAM_S),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        family_run(cfg, params, tokens[:, :256], 2)     # warm-up, not timed
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in params["layers"].values()) + \
+            sum(params[k].numel() for k in ("embed", "unembed", "final_norm"))
+
+        ops.reset_launches()
+        logits, steps, toks, cache, prefill_s, decode_s = family_run(
+            cfg, params, tokens, FAM_STEPS)
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated()
+
+        assert logits.shape == (FAM_B, 1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all()), arch
+        assert all(bool(torch.isfinite(lg).all()) for lg in steps), arch
+        assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+        specs = M.cache_specs(cfg, FAM_B, FAM_S + FAM_STEPS)
+        assert {k: (tuple(t.shape), t.dtype) for k, t in cache.items()} \
+            == specs, arch
+        assert bool(torch.isfinite(cache["state"]).all()), arch
+        for k in want:
+            assert launches[k] == cfg.num_layers, (arch, k, launches[k])
+        bad = [k for k in ops.KERNELS if k not in want and launches[k]]
+        assert not bad, f"{arch}: unexpected launches {bad}"
+        counts[arch] = {k: launches[k] for k in want}
+        # where the time goes: one prefill and one decode step (the last
+        # position again) under the profiler; the idle share compares the
+        # device time with the unprofiled wall time above
+        prof = {
+            "prefill": device_profile(lambda: M.prefill(
+                cfg, params, {"tokens": tokens}, FAM_S + FAM_STEPS)),
+            "decode_step": device_profile(lambda: M.decode_step(
+                cfg, params, cache, toks[:, -2], FAM_S + FAM_STEPS - 1))}
+        for what, wall_ms in (("prefill", prefill_s * 1e3),
+                              ("decode_step", decode_s * 1e3 / FAM_STEPS)):
+            pr = prof[what]
+            pr["unprofiled_wall_ms"] = wall_ms
+            pr["device_idle_share"] = (None if pr["device_ms"] is None
+                                       else 1.0 - pr["device_ms"] / wall_ms)
+            print(f"  [{card}] {cfg.name} {what}: device busy "
+                  f"{pr['device_ms']} ms of {wall_ms:.2f} ms wall (idle "
+                  f"share {pr['device_idle_share']}); top kernels "
+                  + "; ".join(f"{t['name']} {t['device_ms']:.3f} ms x"
+                              f"{t['calls']}" for t in pr["top"]),
+                  flush=True)
+        results[arch] = dict(
+            model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+            params=n_params, batch=FAM_B, prompt_tokens=FAM_S,
+            decode_steps=FAM_STEPS, setup_s=setup_s,
+            prefill_ms=prefill_s * 1e3,
+            prefill_tokens_per_s=FAM_B * FAM_S / prefill_s,
+            decode_ms_per_step=decode_s * 1e3 / FAM_STEPS,
+            decode_tokens_per_s=FAM_B * FAM_STEPS / decode_s,
+            max_memory_allocated_bytes=peak, launches=counts[arch],
+            profile=prof)
+        print(f"  [{card}] {cfg.name}: {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {n_params / 1e9:.3f} B params in bf16; "
+              f"prefill {FAM_B} x {FAM_S} tokens {prefill_s * 1e3:.2f} ms "
+              f"({FAM_B * FAM_S / prefill_s:.0f} tokens/s), decode "
+              f"{decode_s * 1e3 / FAM_STEPS:.2f} ms per step "
+              f"({FAM_B * FAM_STEPS / decode_s:.1f} tokens/s), peak device "
+              f"memory {peak / 2**30:.2f} GiB; launches {counts[arch]}",
+              flush=True)
+        del params, cache, logits, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: small models on the card equal the same models on the CPU
+# ---------------------------------------------------------------------------
+
+def family_check():
+    """Small float32 Mamba2 and Hymba models: prefill of 150 tokens (the
+    SSD scan pads its last chunk; Hymba's 64-token window bites and the
+    SWA kernel's sequence is padded) and 3 decode steps give the same
+    logits and caches on the card as on the CPU, to 1e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # as the CPU reference
+    out = {}
+    for arch in FAMILY_KERNELS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 150)), dtype=torch.int32)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.to(dev))
+                 for k, v in params.items()}
+            lg, steps, toks, cache, _, _ = family_run(cfg, p,
+                                                      tokens.to(dev), 3)
+            runs[dev] = [t.cpu() for t in [lg, *steps]], \
+                {k: v.cpu() for k, v in cache.items()}
+        (lc, cc), (lg, cg) = runs["cpu"], runs["cuda"]
+        err = 0.0
+        for a, b in list(zip(lg, lc)) + [(cg[k], cc[k]) for k in cc]:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+            err = max(err, float((a.float() - b.float()).abs().max()))
+        print(f"  {cfg.name} f32: prefill and 3 decode steps on the card "
+              f"match the CPU (logits and caches {sorted(cc)}, max abs "
+              f"difference {err:.3g})", flush=True)
+        out[arch] = dict(max_abs_err=err)
+    return out
+
 
 def check_phase():
     import torch
@@ -774,8 +1080,18 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    print(f"[families] {FAM_B} prompts of {FAM_S} tokens, then {FAM_STEPS} "
+          f"greedy decode steps; wall times end in a synchronise", flush=True)
+    families, counts = families_phase(card)
+    for arch_counts in counts.values():
+        for k, n in arch_counts.items():
+            launches[k] = launches.get(k, 0) + n
+    phase_s["families"] = time.perf_counter() - t0
+
     print("[check]", flush=True)
     check = check_phase()
+    check["families"] = family_check()
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -789,6 +1105,9 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             library_call=r["library_call"]))
+        for extra in ("shape", "hymba"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
         if "int8_vs_float_max_abs_err_bf16" in r:
             kernels[-1].update(
                 int8_vs_float_max_abs_err=r["int8_vs_float_max_abs_err_bf16"],
@@ -798,7 +1117,8 @@ def main() -> int:
     results = dict(card=card, device=kind, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,
                    total_s=total_s, phase_s=phase_s, kernels=kernels,
-                   serve=serve, migration=migration, check=check)
+                   serve=serve, migration=migration, families=families,
+                   check=check)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,12 +1,12 @@
 """Public wrappers for the port's kernels, under the names and argument
 orders of the JAX package's ``repro.kernels.ops``: the serving path, the
-int8 host tier, attention over int8 pools and the single-layer block
-copies.
+int8 host tier, attention over int8 pools, the single-layer block
+copies, the Mamba2 SSD scan and sliding-window prefill attention.
 
 Each wrapper dispatches on the device of its tensors. On the CPU it runs
 the plain PyTorch version from ``ref``; on a CUDA tensor it checks device,
 dtype (float32 or bfloat16 pools and queries; int8 payloads and pages with
-float32 scales), shape and contiguity, allocates any output
+float32 scales; float32 SSD scan parameters), shape and contiguity, allocates any output
 with ``torch.empty``, launches its hand-written kernel from ``csrc/`` on
 the current stream, and raises if the launch is refused. It never falls
 back to the plain version on the card.
@@ -35,7 +35,8 @@ KERNELS = ("kv_token_write", "paged_attention", "kv_chunk_write",
            "block_scatter_layers", "block_gather_quant_layers",
            "block_scatter_dequant_layers", "kv_block_quant",
            "kv_block_dequant", "paged_attention_quant",
-           "paged_prefill_attention_quant", "block_gather", "block_scatter")
+           "paged_prefill_attention_quant", "block_gather", "block_scatter",
+           "ssd_scan", "swa_attention")
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # query rows per paged-prefill thread block
@@ -78,6 +79,10 @@ _SIGNATURES = {
                                        _P]),
     "block_gather": ("block_copy", [_P, _P, _P, _I64, _I64, _I64, _P]),
     "block_scatter": ("block_copy", [_P, _P, _P, _I64, _I64, _I64, _P]),
+    "ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
+                              _I, _I, _I, _I, _I, _P]),
+    "swa_attention": ("swa_attention", [_P, _P, _P, _P, _I64, _I, _I, _I,
+                                        _I, _F, _I, _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -538,4 +543,92 @@ def paged_prefill_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
                 block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(), b,
                 c, block_tables.shape[1], bs, hkv, g, d, PREFILL_Q_TILE,
                 1.0 / math.sqrt(d), code)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# model families: B14 ssd_scan (Mamba2), B15 swa_attention (sliding window)
+# ---------------------------------------------------------------------------
+
+# largest SSD chunk and state width, and largest head dim of sliding-window
+# attention, that the CUDA kernels take
+SSD_MAX_CHUNK, SSD_MAX_STATE, SWA_MAX_HEAD_DIM = 64, 128, 128
+
+
+def ssd_scan(x, dt, a, b, c, chunk: int = 64):
+    """Chunked Mamba2 SSD scan from a zero state.
+
+    x: (B, S, H, P) float32 or bfloat16 (read as float32); dt, a: (B, S, H)
+    float32 (a = dt * A, A < 0); b, c: (B, S, N) float32, shared by all
+    heads. S must be a multiple of ``chunk`` (callers pad). Returns
+    (y (B, S, H, P) float32, final state (B, H, P, N) float32).
+    """
+    name = "ssd_scan"
+    bsz, s, h, p = x.shape
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"{name}: sequence length {s} is not a multiple "
+                         f"of chunk {chunk}")
+    if _on_cpu(name, x, dt, a, b, c):
+        return R.ssd_scan_ref(x, dt, a, b, c)
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
+    _check(name, "x", x, 4)
+    for what, t in (("dt", dt), ("a", a)):
+        _check(name, what, t, 3, torch.float32)
+        _require(name, tuple(t.shape) == (bsz, s, h),
+                 f"{what} shape {tuple(t.shape)} != {(bsz, s, h)}")
+    _check(name, "b", b, 3, torch.float32)
+    _check(name, "c", c, 3, torch.float32)
+    n = b.shape[-1]
+    _require(name, tuple(b.shape) == (bsz, s, n) and c.shape == b.shape,
+             "b/c shape mismatch")
+    _require(name, chunk <= SSD_MAX_CHUNK and 1 <= n <= SSD_MAX_STATE,
+             f"needs chunk <= {SSD_MAX_CHUNK} and N <= {SSD_MAX_STATE}, got "
+             f"chunk {chunk}, N {n}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((bsz, s, h, p), **f32)
+    state = torch.empty((bsz, h, p, n), **f32)
+    # scratch: each chunk's state contribution, then the state entering it,
+    # and each chunk's decay
+    cs = torch.empty((bsz, h, s // chunk, p, n), **f32)
+    decay = torch.empty((bsz, h, s // chunk), **f32)
+    if bsz and h and p:
+        _launch(name, x.device, x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                b.data_ptr(), c.data_ptr(), y.data_ptr(), state.data_ptr(),
+                cs.data_ptr(), decay.data_ptr(), bsz, s, h, p, n, chunk,
+                _DTYPE_CODE[x.dtype])
+    return y, state
+
+
+def swa_attention(q, k, v, window: int, q_block: int = 128,
+                  kv_block: int = 128):
+    """Causal sliding-window attention (prefill), MHA layout: q, k, v
+    (B, S, H, D) float32 or bfloat16 (callers repeat KV heads). Query i
+    attends to keys j with ``i - window < j <= i``. As in the JAX wrapper,
+    S must be a multiple of ``min(q_block, S)`` and ``min(kv_block, S)``;
+    the CUDA kernel tiles on its own. Returns (B, S, H, D) in q's dtype."""
+    name = "swa_attention"
+    bsz, s, h, d = q.shape
+    qb, kb = min(q_block, s), min(kv_block, s)
+    if qb < 1 or kb < 1 or s % qb or s % kb:
+        raise ValueError(f"{name}: sequence length {s} is not a multiple of "
+                         f"the blocks ({qb}, {kb})")
+    if _on_cpu(name, q, k, v):
+        return R.swa_attention_ref(q, k, v, window)
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
+    _check(name, "q", q, 4)
+    _check(name, "k", k, 4, q.dtype)
+    _check(name, "v", v, 4, q.dtype)
+    _require(name, k.shape == q.shape and v.shape == q.shape,
+             "q/k/v shapes differ (MHA layout: repeat the KV heads)")
+    _require(name, d <= SWA_MAX_HEAD_DIM,
+             f"needs D <= {SWA_MAX_HEAD_DIM}, got {d}")
+    out = torch.empty_like(q)
+    if bsz and h and d:
+        _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), bsz, s, h, d, min(int(window), s),
+                1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype])
     return out

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels: the serving path, the
 int8 host tier's quantize / dequantize kernels, attention over int8
-pools, and the single-layer block copies.
+pools, the single-layer block copies, the Mamba2 SSD scan and
+sliding-window attention.
 
 Each function computes what its CUDA kernel in ``csrc/`` computes, with
 ordinary tensor ops and no tiling: a gather of every table page, an f32
@@ -198,3 +199,40 @@ def block_scatter_dequant_layers_ref(pools, indices, staging, scales):
     pools[:, indices.long()] = dequantize_block_ref(staging, scales,
                                                     pools.dtype)
     return pools
+
+
+def ssd_scan_ref(x, dt, a, b, c):
+    """Token-sequential SSD recurrence from a zero state.
+
+    x: (B, S, H, P) float; dt, a: (B, S, H) float32 (a = dt * A, A < 0);
+    b, c: (B, S, N) float32. Per step ``state = state * exp(a) + dt * x b^T``
+    and ``y = state c``. Returns (y (B, S, H, P) float32, final state
+    (B, H, P, N) float32).
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    xf = x.float()
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        state = state * torch.exp(a[:, t])[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt[:, t], xf[:, t], b[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c[:, t]))
+    return torch.stack(ys, dim=1), state
+
+
+def swa_attention_ref(q, k, v, window):
+    """Causal sliding-window attention, MHA layout: q, k, v (B, S, H, D).
+    Query i attends to keys j with ``j <= i`` and ``j > i - window``;
+    scores in float32. Returns (B, S, H, D) in ``q.dtype``."""
+    s, d = q.shape[1], q.shape[-1]
+    scores = torch.einsum("bshd,bthd->bhst", q.float(),
+                          k.float()) / math.sqrt(d)
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    mask = (j <= i) & (j > i - window)
+    scores = torch.where(mask[None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    return out.to(q.dtype)

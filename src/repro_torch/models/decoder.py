@@ -1,43 +1,82 @@
-"""Dense decoder stack on the paged KV pool: batched decode and chunked
-suffix prefill.
+"""Decoder stacks: the dense stack on the paged KV pool (batched decode
+and chunked suffix prefill, the serving path), and the dense-cache
+``prefill`` / ``decode_step`` of the dense, SSM (Mamba2) and hybrid
+(Hymba: attention and SSM heads in parallel) stacks.
 
-The counterpart of ``repro.models.decoder.paged_decode`` and
-``paged_prefill`` for dense archs. JAX scans the stacked layer params and
-threads the donated pools through the scan; here a Python loop walks the
-layers and each layer's K/V kernels write that layer's slice of the pools
-**in place**, so no pool is ever copied.
+The counterparts of ``repro.models.decoder``. JAX scans the stacked layer
+params; here a Python loop walks the layers. On the paged path each
+layer's K/V kernels write that layer's slice of the pools **in place**, so
+no pool is ever copied; the dense cache of ``prefill`` is a dict of
+stacked (L, ...) tensors that ``decode_step`` updates in place:
+
+    {"k", "v": (L, B, S, Hkv, D)}   (int8, plus "k_scale", "v_scale"
+                                     (L, B, S, Hkv) float32 with
+                                     kv_quant_int8), attention archs
+    {"conv": (L, B, W-1, conv_dim), "state": (L, B, H, P, N) float32}
+                                     SSM and hybrid archs
+
+Where the JAX model computes sliding-window prefill attention and the SSD
+chunk scan in plain ``jnp``, this port runs them through the kernels of
+the Pallas versions, ``ops.swa_attention`` (B15) and ``ops.ssd_scan``
+(B14).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+
+# sequence block of ops.swa_attention (its default q_block and kv_block):
+# windowed prefill pads S to a multiple of it
+SWA_BLOCK = 128
 
 
 def init_layer_stack(cfg, generator, dtype, device):
-    """Stacked (L, ...) params of a dense stack: attention, SwiGLU MLP and
-    the two pre-norm gains."""
-    if cfg.arch_type != "dense":
+    """Stacked (L, ...) params of a dense, SSM or hybrid stack, shaped as
+    the JAX package's ``init_layer_stack``."""
+    if cfg.arch_type not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: this port runs dense stacks only; "
-            "MoE and the other families come in later slices")
-    nl = cfg.num_layers
-    p = L.init_attn(cfg, generator, nl, dtype, device)
-    p["attn_norm"] = torch.zeros((nl, cfg.d_model), dtype=dtype,
-                                 device=device)
-    p.update(L.init_mlp(cfg, generator, nl, dtype, device))
-    p["mlp_norm"] = torch.zeros((nl, cfg.d_model), dtype=dtype,
-                                device=device)
+            f"arch_type {cfg.arch_type!r}: this port runs dense, SSM and "
+            "hybrid stacks; MoE, VLM and audio come in later slices")
+    nl, d = cfg.num_layers, cfg.d_model
+
+    def const(value):
+        return torch.full((nl, d), value, dtype=dtype, device=device)
+
+    p = {}
+    if cfg.arch_type != "ssm":
+        p.update(L.init_attn(cfg, generator, nl, dtype, device))
+        p["attn_norm"] = const(0.0)
+        p.update(L.init_mlp(cfg, generator, nl, dtype, device))
+        p["mlp_norm"] = const(0.0)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        p.update(init_ssm_sub(cfg, generator, nl, dtype, device))
+    if cfg.arch_type == "hybrid":
+        # per-channel fusion gains of the parallel attention and SSM heads
+        p["fuse_attn"] = const(1.0)
+        p["fuse_ssm"] = const(1.0)
+        p["attn_out_norm"] = const(0.0)
+        p["ssm_out_norm"] = const(0.0)
     return p
+
+
+def init_ssm_sub(cfg, generator, nl, dtype, device):
+    sub = S.init_ssm(cfg, generator, nl, dtype, device)
+    if cfg.arch_type == "ssm":
+        sub["norm"] = torch.zeros((nl, cfg.d_model), dtype=dtype,
+                                  device=device)
+    return sub
 
 
 def _layer(stacked, i):
     return {k: v[i] for k, v in stacked.items()}
 
 
-def _paged_ffn(lp, h):
-    """Pre-norm dense SwiGLU residual block."""
+def _ffn(lp, h):
+    """Pre-norm dense SwiGLU residual block: h + mlp(rms_norm(h))."""
     return h + L.mlp(lp, L.rms_norm(h, lp["mlp_norm"]))
 
 
@@ -66,7 +105,7 @@ def paged_decode(cfg, stacked, x, k_pool, v_pool, tables, positions,
         out = ops.paged_attention(q[:, 0], k_pool[i], v_pool[i], tables,
                                   attn_lens)
         h = h + L.attn_out(lp, out[:, None])
-        h = _paged_ffn(lp, h)
+        h = _ffn(lp, h)
     return h
 
 
@@ -96,5 +135,144 @@ def paged_prefill(cfg, stacked, x, k_pool, v_pool, tables, q_pos,
         out = ops.paged_prefill_attention(q, k_pool[i], v_pool[i], tables,
                                           q_pos)
         h = h + L.attn_out(lp, out)
-        h = _paged_ffn(lp, h)
+        h = _ffn(lp, h)
     return h
+
+
+# ---------------------------------------------------------------------------
+# dense-cache prefill and decode (dense, ssm, hybrid)
+# ---------------------------------------------------------------------------
+
+def _swa(q, k, v, window: int):
+    """Causal sliding-window attention through ``ops.swa_attention``: the
+    KV heads repeated to MHA layout (query head h reads KV head h // G, as
+    the JAX model groups them) and S padded at the end to a multiple of
+    the kernel's block. Padded keys lie after every real query, so the
+    causal mask hides them; padded queries are sliced off."""
+    s = q.shape[1]
+    g = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    pad = (-s) % SWA_BLOCK if s > SWA_BLOCK else 0
+    q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)).contiguous()
+               for t in (q, k, v))
+    return ops.swa_attention(q, k, v, window)[:, :s]
+
+
+def _attn_seq(cfg, lp, xn, positions):
+    """Sequence attention of prefill. Returns (out, k, v)."""
+    q, k, v = L.qkv_project(cfg, lp, xn)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.sliding_window is not None:
+        out = _swa(q, k, v, cfg.sliding_window)
+    else:
+        out = L.chunked_attention(q, k, v, positions, positions)
+    return L.attn_out(lp, out), k, v
+
+
+def _quantize_kv(t):
+    """t (B, S, H, D) -> (int8 values, (B, S, H) float32 scales); the
+    scale divides by a tensor so the card computes the IEEE quotient as
+    the CPU does."""
+    tf = t.float()
+    amax = tf.abs().amax(dim=-1)
+    scale = torch.maximum(amax / amax.new_full((), 127.0),
+                          amax.new_full((), 1e-8))
+    q = torch.round(tf / scale[..., None]).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _mix(lp, a_out, s_out):
+    """Hymba's fusion of the parallel attention and SSM outputs."""
+    return 0.5 * (L.rms_norm(a_out, lp["attn_out_norm"]) * lp["fuse_attn"]
+                  + L.rms_norm(s_out, lp["ssm_out_norm"]) * lp["fuse_ssm"])
+
+
+def prefill(cfg, stacked, x, positions, cache_size=None):
+    """Prefill x (B, S, d) embedded at positions (1, S). Returns (hidden,
+    cache) with the K/V caches zero-padded to ``cache_size`` tokens."""
+    sq = x.shape[1]
+    size = cache_size or sq
+    ys = {}
+
+    def keep(**kw):
+        for name, t in kw.items():
+            ys.setdefault(name, []).append(t)
+
+    h = x
+    for i in range(cfg.num_layers):
+        lp = _layer(stacked, i)
+        if cfg.arch_type == "ssm":
+            out, (conv, state) = S.ssm_mixer(cfg, lp,
+                                             L.rms_norm(h, lp["norm"]))
+            keep(conv=conv, state=state)
+            h = h + out
+            continue
+        xn = L.rms_norm(h, lp["attn_norm"])
+        a_out, k, v = _attn_seq(cfg, lp, xn, positions)
+        if size > sq:
+            k, v = (F.pad(t, (0, 0, 0, 0, 0, size - sq)) for t in (k, v))
+        if cfg.kv_quant_int8:
+            (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+            keep(k=kq, k_scale=ks, v=vq, v_scale=vs)
+        else:
+            keep(k=k, v=v)
+        if cfg.arch_type == "hybrid":
+            s_out, (conv, state) = S.ssm_mixer(cfg, lp, xn)
+            keep(conv=conv, state=state)
+            h = h + _mix(lp, a_out, s_out)
+        else:
+            h = h + a_out
+        h = _ffn(lp, h)
+    return h, {name: torch.stack(ts) for name, ts in ys.items()}
+
+
+def _attn_decode(cfg, lp, xn, cache, i, cache_len: int):
+    """One-token attention of layer ``i``: writes the new K/V (int8 with
+    its scales under kv_quant_int8) at ``cache_len``, in place, and
+    attends over positions [0, cache_len]."""
+    q, k, v = L.qkv_project(cfg, lp, xn)
+    pos = torch.full((1, 1), cache_len, dtype=torch.int32, device=xn.device)
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k = L.apply_rope(k, pos, cfg.rope_theta)
+    kc, vc = cache["k"][i], cache["v"][i]
+    if cfg.kv_quant_int8:
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        kc[:, cache_len], vc[:, cache_len] = kq[:, 0], vq[:, 0]
+        ksc, vsc = cache["k_scale"][i], cache["v_scale"][i]
+        ksc[:, cache_len], vsc[:, cache_len] = ks[:, 0], vs[:, 0]
+        out = L.decode_attention(q, kc.float() * ksc[..., None],
+                                 vc.float() * vsc[..., None], cache_len + 1,
+                                 window=cfg.sliding_window).to(xn.dtype)
+    else:
+        kc[:, cache_len], vc[:, cache_len] = k[:, 0], v[:, 0]
+        out = L.decode_attention(q, kc, vc, cache_len + 1,
+                                 window=cfg.sliding_window)
+    return L.attn_out(lp, out)
+
+
+def decode_step(cfg, stacked, cache, x, cache_len: int):
+    """One token x (B, 1, d) embedded, at position ``cache_len``, against
+    the cache of :func:`prefill`, which it updates in place. Returns
+    (hidden (B, 1, d), cache)."""
+    h = x
+    for i in range(cfg.num_layers):
+        lp = _layer(stacked, i)
+        if cfg.arch_type == "ssm":
+            out, (conv, state) = S.ssm_decode_step(
+                cfg, lp, L.rms_norm(h, lp["norm"]), cache["conv"][i],
+                cache["state"][i])
+            cache["conv"][i], cache["state"][i] = conv, state
+            h = h + out
+            continue
+        xn = L.rms_norm(h, lp["attn_norm"])
+        a_out = _attn_decode(cfg, lp, xn, cache, i, cache_len)
+        if cfg.arch_type == "hybrid":
+            s_out, (conv, state) = S.ssm_decode_step(
+                cfg, lp, xn, cache["conv"][i], cache["state"][i])
+            cache["conv"][i], cache["state"][i] = conv, state
+            h = h + _mix(lp, a_out, s_out)
+        else:
+            h = h + a_out
+        h = _ffn(lp, h)
+    return h, cache

@@ -1,4 +1,4 @@
-"""Layers of the dense serving decoder, as plain functions on tensors.
+"""Layers of the decoder stacks, as plain functions on tensors.
 
 Conventions follow ``repro.models.layers``: per-layer parameters are
 stacked along a leading layer axis; activations stay in the config dtype;
@@ -69,6 +69,84 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense-cache attention (prefill without a window, decode), plain PyTorch as
+# in the JAX package, which computes these outside any Pallas kernel
+# ---------------------------------------------------------------------------
+
+def _gqa_scores(q, k):
+    """q (B, S, H, D), k (B, T, Hkv, D) -> float32 scores (B, H, S, T);
+    query head h reads KV head h // (H / Hkv)."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    q = q.reshape(b, s, hkv, h // hkv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+    return scores.reshape(b, h, s, k.shape[1])
+
+
+def _gqa_values(probs, v):
+    """probs (B, H, S, T), v (B, T, Hkv, D) -> float32 (B, S, H, D)."""
+    b, h, s, t = probs.shape
+    hkv = v.shape[2]
+    probs = probs.reshape(b, hkv, h // hkv, s, t)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(b, s, h, v.shape[-1])
+
+
+def attention_mask(q_pos, k_pos, window=None, causal: bool = True):
+    """Boolean mask (..., S_q, S_k), True = attend."""
+    m = torch.ones(q_pos.shape[:-1] + (q_pos.shape[-1], k_pos.shape[-1]),
+                   dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m &= k_pos[..., None, :] > q_pos[..., :, None] - window
+    return m
+
+
+def full_attention(q, k, v, q_pos, k_pos, window=None, causal=True):
+    """Quadratic attention. q (B, S, H, D), k/v (B, T, Hkv, D); positions
+    (B or 1, S) and (B or 1, T). Returns (B, S, H, D) in v's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = _gqa_scores(q, k) * scale
+    mask = attention_mask(q_pos, k_pos, window, causal)
+    mask = mask[:, None] if mask.dim() == 3 else mask[None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_values(probs, v).to(v.dtype)
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, window=None, causal=True,
+                      q_chunk: int = 1024):
+    """Query-chunked :func:`full_attention`: each chunk of ``q_chunk``
+    queries sees every key (masked), so no (S, T) score matrix beyond one
+    chunk's exists. Same numerics as the JAX function (whose padded last
+    chunk is sliced off; here the last chunk is simply shorter)."""
+    s = q.shape[1]
+    if s <= q_chunk:
+        return full_attention(q, k, v, q_pos, k_pos, window, causal)
+    return torch.cat([
+        full_attention(q[:, i:i + q_chunk], k, v, q_pos[..., i:i + q_chunk],
+                       k_pos, window, causal)
+        for i in range(0, s, q_chunk)], dim=1)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len: int, window=None):
+    """One query per row, q (B, 1, H, D), at position ``cache_len - 1``
+    against the cache (B, S, Hkv, D), whose positions [0, cache_len) are
+    valid (the new token already written). Returns (B, 1, H, D) in the
+    cache's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = _gqa_scores(q, k_cache) * scale                 # (B, H, 1, S)
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    valid = kpos < cache_len
+    if window is not None:
+        valid &= kpos >= cache_len - window
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_values(probs, v_cache).to(v_cache.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,17 @@
-"""Model API of the serving path: parameters, paged decode and prefill
-steps, and the LM head.
+"""Model API: parameters, the paged decode and prefill steps of the
+serving path, the LM head, and dense-cache prefill / decode.
 
     params = init_params(cfg, generator, device)        # random, from a seed
     params = load_jax_params(numpy_tree, device)        # the JAX weights
     logits = paged_decode_step(cfg, params, k_pool, v_pool, tokens, ...)
     hidden = paged_prefill_step(cfg, params, k_pool, v_pool, tokens, ...)
     logits = head_logits(cfg, params, hidden_rows)
+    logits, cache = prefill(cfg, params, {"tokens": tokens}, cache_size)
+    logits, cache = decode_step(cfg, params, cache, tokens, cache_len)
+
+The paged steps serve dense stacks; ``prefill`` / ``decode_step`` run the
+dense (with or without a sliding window), SSM and hybrid stacks on text
+batches.
 
 Parameters are a dict shaped like the JAX ``init_params`` pytree:
 ``embed`` (V, d), ``unembed`` (d, V), ``final_norm`` (d,) and ``layers``,
@@ -19,6 +25,7 @@ import torch
 
 from repro_torch.models import decoder as D
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 def torch_dtype(cfg):
@@ -88,3 +95,57 @@ def paged_prefill_step(cfg, params, k_pool, v_pool, tokens, tables,
 def head_logits(cfg, params, h):
     """Final norm + unembed for selected hidden rows: (B, d) -> (B, V)."""
     return _lm_head(params, h[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# dense-cache prefill and decode (dense, ssm, hybrid; text batches)
+# ---------------------------------------------------------------------------
+
+def _assemble_inputs(cfg, params, batch):
+    """Embedded tokens (B, S, d) and positions (1, S) of a text batch."""
+    if cfg.arch_type in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"arch_type {cfg.arch_type!r}: image and audio inputs come in a "
+            "later slice of the port")
+    tokens = batch["tokens"]
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    return _embed_tokens(params, tokens), pos
+
+
+def prefill(cfg, params, batch, cache_size=None):
+    """Prefill ``batch["tokens"]`` (B, S) int. Returns (last-position
+    logits (B, 1, V), cache) with the K/V caches sized to ``cache_size``
+    tokens (default S); see ``decoder.prefill`` for the cache's layout."""
+    x, pos = _assemble_inputs(cfg, params, batch)
+    h, cache = D.prefill(cfg, params["layers"], x, pos,
+                         cache_size or x.shape[1])
+    return _lm_head(params, h[:, -1:]), cache
+
+
+def decode_step(cfg, params, cache, tokens, cache_len: int):
+    """tokens (B,) int at position ``cache_len`` (tokens already cached);
+    updates ``cache`` in place. Returns (logits (B, V), cache)."""
+    x = _embed_tokens(params, tokens[:, None])
+    h, cache = D.decode_step(cfg, params["layers"], cache, x, cache_len)
+    return _lm_head(params, h)[:, 0], cache
+
+
+def cache_specs(cfg, batch_size: int, cache_size: int):
+    """{name: (shape, dtype)} of the cache that ``prefill`` returns."""
+    dtype, nl = torch_dtype(cfg), cfg.num_layers
+    specs = {}
+    if cfg.arch_type != "ssm":
+        kv = (nl, batch_size, cache_size, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.kv_quant_int8:
+            specs.update(k=(kv, torch.int8), v=(kv, torch.int8),
+                         k_scale=(kv[:-1], torch.float32),
+                         v_scale=(kv[:-1], torch.float32))
+        else:
+            specs.update(k=(kv, dtype), v=(kv, dtype))
+    if cfg.arch_type in ("ssm", "hybrid"):
+        _, _, conv_dim = S.proj_dims(cfg)
+        specs["conv"] = ((nl, batch_size, cfg.ssm_conv_width - 1, conv_dim),
+                         dtype)
+        specs["state"] = ((nl, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state), torch.float32)
+    return specs

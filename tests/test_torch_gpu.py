@@ -11,7 +11,12 @@ Two cases run at Qwen2.5-14B's serve-pool size, where byte offsets pass
 2**31 and only 64-bit offset arithmetic gives the right blocks. The int8
 quantize and dequantize kernels are exact against their plain versions,
 and so are the single-layer block copies; attention over int8 pools
-takes the attention kernels' tolerances.
+takes the attention kernels' tolerances. The SSD scan (B14) is held to
+its token-sequential plain version at 2e-3, the tolerance of the JAX
+package's ``test_ssd_scan`` (the chunked sums run in another order over
+up to 256 steps); sliding-window attention (B15) takes the attention
+tolerances. The Hymba smoke model runs prefill and decode on the card in
+float32 (full float32 products) and matches the CPU to 1e-4.
 """
 import numpy as np
 import pytest
@@ -373,3 +378,111 @@ def test_int8_attention_and_block_copy_launches_and_bad_inputs(dev):
     for name in ("paged_attention_quant", "paged_prefill_attention_quant",
                  "block_gather", "block_scatter"):
         assert ops.launches[name] == 1, name
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,p,n,q", [
+    (4, 256, 24, 64, 128, 64),    # Mamba2-130M widths, a shorter sequence
+    (2, 128, 3, 16, 128, 16),     # N = 128 with Q = 16
+    (2, 192, 50, 64, 16, 64),     # Hymba-1.5B widths (N = 16)
+    (1, 96, 5, 40, 4, 32),        # P not a multiple of the 32-row slice
+    (2, 20, 2, 8, 8, 20),         # Q not a multiple of 16
+])
+def test_ssd_scan(dev, dt, b, s, h, p, n, q):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = _rand(gen, (b, s, h, p), dt, dev)
+    dts = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=dev))
+    bm, cm = (torch.randn((b, s, n), generator=gen, device=dev)
+              for _ in "bc")
+    y, st = ops.ssd_scan(x, dts, dts * A, bm, cm, chunk=q)
+    yr, sr = R.ssd_scan_ref(x, dts, dts * A, bm, cm)
+    torch.cuda.synchronize()
+    assert y.dtype == st.dtype == torch.float32
+    torch.testing.assert_close(y, yr, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(st, sr, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,d,window", [
+    (4, 2048, 25, 64, 1024),      # Hymba-1.5B prefill, heads repeated
+    (2, 256, 3, 32, 16),          # window smaller than one 64-key tile
+    (2, 256, 2, 128, 1000),       # window >= S: plain causal attention
+    (1, 96, 2, 20, 40),           # a ragged tile; bf16 rows not 16-byte
+])
+def test_swa_attention(dev, dt, b, s, h, d, window):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (_rand(gen, (b, s, h, d), dt, dev) for _ in "qkv")
+    got = ops.swa_attention(q, k, v, window)
+    want = R.swa_attention_ref(q, k, v, window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol(dt))
+
+
+def test_ssd_swa_launches_are_counted_and_bad_inputs_raise(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = _rand(gen, (1, 128, 2, 8), "f32", dev)
+    dts = torch.rand((1, 128, 2), generator=gen, device=dev)
+    bm = torch.randn((1, 128, 4), generator=gen, device=dev)
+    ops.reset_launches()
+    ops.ssd_scan(x, dts, -dts, bm, bm, chunk=64)
+    q = _rand(gen, (1, 128, 2, 16), "bf16", dev)
+    ops.swa_attention(q, q, q, 32)
+    assert ops.launches["ssd_scan"] == 1
+    assert ops.launches["swa_attention"] == 1
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(x, dts, -dts, bm, bm, chunk=128)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.ssd_scan(x, dts, -dts, bm, bm, chunk=48)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, dts.double(), -dts, bm, bm)
+    with pytest.raises(ValueError, match="D <="):
+        big = _rand(gen, (1, 64, 1, 160), "f32", dev)
+        ops.swa_attention(big, big, big, 8)
+    with pytest.raises(ValueError, match="multiple"):
+        r = _rand(gen, (1, 200, 1, 16), "f32", dev)
+        ops.swa_attention(r, r, r, 8)
+    assert ops.launches["ssd_scan"] == 1
+    assert ops.launches["swa_attention"] == 1
+
+
+def test_hymba_smoke_prefill_decode_card_equals_cpu(dev):
+    """Prefill (the window bites and S is padded for the kernel) and three
+    greedy decode steps of the Hymba smoke model in float32: logits and
+    every cache on the card within 1e-4 of the CPU run."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("hymba_1_5b"),
+                              dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 150)), dtype=torch.int32)
+    runs = {}
+    for d in ("cpu", dev):
+        p = {k: ({kk: vv.to(d) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(d))
+             for k, v in params.items()}
+        ops.reset_launches()
+        logits, cache = M.prefill(cfg, p, {"tokens": toks.to(d)}, 160)
+        out = [logits[:, 0]]
+        nxt = logits[:, 0].argmax(-1).to(torch.int32)
+        for step in range(3):
+            lg, cache = M.decode_step(cfg, p, cache, nxt, 150 + step)
+            out.append(lg)
+            nxt = lg.argmax(-1).to(torch.int32)
+        runs[str(d)] = ([t.cpu() for t in out],
+                        {k: v.cpu() for k, v in cache.items()},
+                        dict(ops.launches))
+    (lc, cc, _), (lg, cg, n) = runs["cpu"], runs[str(dev)]
+    assert n["ssd_scan"] == cfg.num_layers
+    assert n["swa_attention"] == cfg.num_layers
+    for a, b in zip(lg, lc):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    for k in cc:
+        torch.testing.assert_close(cg[k], cc[k], atol=1e-4, rtol=1e-4)

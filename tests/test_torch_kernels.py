@@ -17,6 +17,11 @@ oracles at the same 3e-5 (float32) / 2e-2 (bfloat16), and, like
 ``test_quant_kernels.py``, within ``LOGITS_TOL`` of full-precision
 attention on the pools before quantization. The single-layer block
 copies are exact.
+
+The Mamba2 SSD scan is held to the Pallas kernel and to the JAX oracle's
+token-sequential recurrence at 2e-3 (``test_kernels.py``'s tolerance: the
+chunked and sequential sums run in different orders); sliding-window
+attention at the attention tolerances above.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +32,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops as jops
 from repro.kernels import ref as JR
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as R
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -425,3 +431,70 @@ def test_mixed_devices_raise():
     idx = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.block_gather_layers(x, idx)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("s,q", [(64, 16), (128, 64), (96, 32)])
+@pytest.mark.parametrize("h,p,n", [(2, 8, 4), (3, 16, 8)])
+def test_ssd_scan(dt, s, q, h, p, n):
+    rng = np.random.default_rng(10)
+    b = 2
+    x, tx = pair(rng.standard_normal((b, s, h, p)), dt)
+    dtv = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    av = dtv * -np.exp(0.5 * rng.standard_normal(h)).astype(np.float32)
+    (jdt, tdt), (ja, ta) = pair(dtv, "f32"), pair(av, "f32")
+    jb, tb = pair(rng.standard_normal((b, s, n)), "f32")
+    jc, tc = pair(rng.standard_normal((b, s, n)), "f32")
+    y, st = ops.ssd_scan(tx, tdt, ta, tb, tc, chunk=q)
+    assert y.dtype == st.dtype == torch.float32
+    yk, sk = jops.ssd_scan(x, jdt, ja, jb, jc, chunk=q)
+    yr, sr = JR.ssd_scan_ref(x, jdt, ja, jb, jc)
+    for want_y, want_s in ((yk, sk), (yr, sr)):
+        np.testing.assert_allclose(npf(y), npf(want_y), atol=2e-3, rtol=2e-3)
+        np.testing.assert_allclose(npf(st), npf(want_s), atol=2e-3,
+                                   rtol=2e-3)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("s,w,qb", [(128, 32, 64), (256, 96, 64),
+                                    (128, 128, 128)])
+def test_swa_attention(dt, s, w, qb):
+    rng = np.random.default_rng(11)
+    (q, tq), (k, tk), (v, tv) = (pair(rng.standard_normal((2, s, 3, 32)), dt)
+                                 for _ in "qkv")
+    got = ops.swa_attention(tq, tk, tv, w, q_block=qb, kv_block=qb)
+    assert got.dtype == tq.dtype
+    for want in (jops.swa_attention(q, k, v, w, q_block=qb, kv_block=qb),
+                 JR.swa_attention_ref(q, k, v, w)):
+        np.testing.assert_allclose(npf(got), npf(want), **tol(dt))
+
+
+def test_ssd_scan_and_swa_attention_shape_checks_raise():
+    """As the JAX wrappers' asserts: S must be a multiple of the SSD chunk
+    and of the attention blocks (callers pad)."""
+    t = torch.zeros((1, 96, 2, 8))
+    dt = torch.zeros((1, 96, 2))
+    bc = torch.zeros((1, 96, 4))
+    with pytest.raises(ValueError, match="multiple of chunk 64"):
+        ops.ssd_scan(t, dt, dt, bc, bc, chunk=64)
+    qkv = torch.zeros((1, 192, 2, 16))
+    with pytest.raises(ValueError, match="multiple of the blocks"):
+        ops.swa_attention(qkv, qkv, qkv, 32)
+    with pytest.raises(ValueError, match="multiple of the blocks"):
+        ops.swa_attention(qkv, qkv, qkv, 32, q_block=64, kv_block=80)
+    assert ops.swa_attention(qkv, qkv, qkv, 32, q_block=64,
+                             kv_block=96).shape == qkv.shape
+
+
+def test_swa_window_at_least_s_is_causal_attention():
+    """A window as long as the sequence leaves plain causal attention."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 64, 2, 8)).astype(
+        np.float32)) for _ in "qkv")
+    got = ops.swa_attention(q, k, v, 64)
+    want = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True).transpose(1, 2)
+    np.testing.assert_allclose(npf(got), npf(want), atol=3e-5, rtol=3e-5)
+    np.testing.assert_array_equal(npf(R.swa_attention_ref(q, k, v, 10**6)),
+                                  npf(got))

@@ -2,11 +2,11 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, ``build/kernels/<name>-<hash>.so`` under the repository root,
-loaded with ``ctypes``. The hash covers the source, the shared header and
-the compiler flags, so an edited source is rebuilt and an unchanged one is
-reused. Nothing is built at import time: the first ``load`` builds every
-missing library at once, one ``nvcc`` process per source, all started
-together.
+loaded with ``ctypes``. The hash covers the source, every shared header
+and the compiler flags, so an edited source or header is rebuilt and an
+unchanged one is reused. Nothing is built at import time: the first
+``load`` builds every missing library at once, one ``nvcc`` process per
+source, all started together.
 """
 from __future__ import annotations
 
@@ -42,8 +42,12 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built: the name hashes the source, every
+    ``csrc/*.cuh`` header (any source may include any of them) and the
+    compiler flags."""
     h = hashlib.sha256()
-    for part in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for part in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+        h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -39,7 +39,7 @@ KERNELS = ("kv_token_write", "paged_attention", "kv_chunk_write",
            "ssd_scan", "swa_attention")
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-# query rows per paged-prefill thread block
+# queries per thread block of the float32 and int8-page prefill kernels
 PREFILL_Q_TILE = 4
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -262,7 +262,13 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_pos):
     """Chunked suffix-prefill attention: q (B, C, H, D) at absolute
     positions q_pos (B, C) int32 attends to pool positions <= q_pos
     through block_tables (B, P) int32; q_pos = -1 rows give zeros.
-    Returns (B, C, H, D)."""
+    Returns (B, C, H, D).
+
+    bf16 pools go to a tensor-core kernel (mma.sync on 16 x 16 bf16
+    tiles, with D a template parameter), which takes D a multiple of 16 up
+    to 128 and pools whose data starts on a 16-byte boundary (16-byte
+    asynchronous copies); other bf16 calls raise. float32 pools take D
+    and bs multiples of 4."""
     name = "paged_prefill_attention"
     if _on_cpu(name, q, k_pages, v_pages, block_tables, q_pos):
         return R.paged_prefill_attention_ref(q, k_pages, v_pages,
@@ -271,6 +277,13 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_pos):
     _check(name, "q", q, 4, k_pages.dtype)
     b, c, bs, hkv, g, d = _check_prefill(name, q, k_pages, block_tables,
                                          q_pos)
+    if k_pages.dtype == torch.bfloat16:
+        _require(name, d % 16 == 0 and d <= 128,
+                 f"bf16 pools need D a multiple of 16 up to 128 (the "
+                 f"tensor-core kernel's head dims), got {d}")
+        _require(name, k_pages.data_ptr() % 16 == 0
+                 and v_pages.data_ptr() % 16 == 0,
+                 "bf16 pools must start on a 16-byte boundary")
     out = torch.empty_like(q)
     if b and c:
         _launch(name, q.device, q.data_ptr(), k_pages.data_ptr(),

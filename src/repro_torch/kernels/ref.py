@@ -201,18 +201,20 @@ def block_scatter_dequant_layers_ref(pools, indices, staging, scales):
     return pools
 
 
-def ssd_scan_ref(x, dt, a, b, c):
+def ssd_scan_ref(x, dt, a, b, c, dtype=torch.float32):
     """Token-sequential SSD recurrence from a zero state.
 
     x: (B, S, H, P) float; dt, a: (B, S, H) float32 (a = dt * A, A < 0);
     b, c: (B, S, N) float32. Per step ``state = state * exp(a) + dt * x b^T``
-    and ``y = state c``. Returns (y (B, S, H, P) float32, final state
-    (B, H, P, N) float32).
+    and ``y = state c``. Returns (y (B, S, H, P), final state (B, H, P, N)),
+    computed in ``dtype`` (float32; float64 for a reference of the
+    float32 sums).
     """
     bsz, s, h, p = x.shape
     n = b.shape[-1]
-    xf = x.float()
-    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    xf = x.to(dtype)
+    dt, a, b, c = (t.to(dtype) for t in (dt, a, b, c))
+    state = torch.zeros((bsz, h, p, n), dtype=dtype, device=x.device)
     ys = []
     for t in range(s):
         state = state * torch.exp(a[:, t])[..., None, None] + torch.einsum(

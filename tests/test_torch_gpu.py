@@ -7,6 +7,8 @@ Tolerances: exact for the write and copy kernels; for the attention
 kernels 3e-5 in float32 and, in bfloat16, atol 2e-3 with rtol 8e-3: kernel
 and plain version both accumulate in float32 and round once, so they may
 differ by one bfloat16 step of the output (2**-7 of its size at most).
+The bf16 prefill kernel (tensor cores, P split into two bf16 parts) is
+held at the same tolerance at the edges of its 64-row and 64-key tiles.
 Two cases run at Qwen2.5-14B's serve-pool size, where byte offsets pass
 2**31 and only 64-bit offset arithmetic gives the right blocks. The int8
 quantize and dequantize kernels are exact against their plain versions,
@@ -97,6 +99,50 @@ def test_paged_prefill_attention(dev, dt, b, c, h, hkv, d, bs, p):
     want = R.paged_prefill_attention_ref(q, kp, vp, bt, qp)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **tol(dt))
+
+
+# the bf16 tensor-core kernel's edges: 64-row tiles of r = j * G + g (C * G
+# ragged), G 1 / 5 / 8, bs 8 / 16 / 32, D 64 / 80 / 128, a one-page table,
+# last positions on 64-key tile edges (63, 64, 127), a padded row inside
+# the batch; ends[i] is row i's last q_pos (-1: padded row)
+@pytest.mark.parametrize("b,c,h,hkv,d,bs,p,ends", [
+    (3, 7, 10, 2, 64, 16, 8, (63, -1, 100)),
+    (2, 16, 4, 4, 64, 16, 9, (64, 127)),
+    (2, 20, 16, 2, 128, 16, 10, (159, 64)),
+    (2, 12, 10, 2, 80, 8, 20, (127, 159)),
+    (2, 12, 10, 2, 128, 32, 5, (63, 159)),
+    (3, 8, 10, 2, 64, 16, 1, (15, 7, -1)),
+    (2, 32, 40, 8, 128, 16, 16, (255, 255)),
+])
+def test_paged_prefill_attention_bf16_tiles(dev, b, c, h, hkv, d, bs, p,
+                                            ends):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = p * b + 2
+    q = _rand(gen, (b, c, h, d), "bf16", dev)
+    kp, vp = (_rand(gen, (n, bs, hkv, d), "bf16", dev) for _ in "kv")
+    bt = torch.randint(0, n, (b, p), generator=gen, device=dev,
+                       dtype=torch.int32)
+    qpos = np.full((b, c), -1)
+    for i, e in enumerate(ends):
+        valid = min(c - i % 3, e + 1)     # some rows end in padding
+        qpos[i, :valid] = e - valid + 1 + np.arange(valid)
+    qp = _ints(qpos, dev)
+    got = ops.paged_prefill_attention(q, kp, vp, bt, qp)
+    want = R.paged_prefill_attention_ref(q, kp, vp, bt, qp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol("bf16"))
+    assert not got[torch.from_numpy(qpos < 0).to(dev)].any()
+
+
+def test_paged_prefill_attention_bf16_head_dim_outside_tiles_raises(dev):
+    """D = 72 is no multiple of 16: the bf16 tensor-core kernel has no
+    instantiation for it, and the wrapper raises instead of launching."""
+    q = torch.zeros((1, 4, 2, 72), dtype=torch.bfloat16, device=dev)
+    kp = torch.zeros((2, 16, 2, 72), dtype=torch.bfloat16, device=dev)
+    bt = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    qp = torch.arange(4, dtype=torch.int32, device=dev)[None]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.paged_prefill_attention(q, kp, kp, bt, qp)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

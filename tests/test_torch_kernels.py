@@ -22,6 +22,11 @@ The Mamba2 SSD scan is held to the Pallas kernel and to the JAX oracle's
 token-sequential recurrence at 2e-3 (``test_kernels.py``'s tolerance: the
 chunked and sequential sums run in different orders); sliding-window
 attention at the attention tolerances above.
+
+The bf16 paged-prefill CUDA kernel cannot run here, so its arithmetic is
+emulated in plain torch (``emulate_prefill_tc``) and held to the Pallas
+kernel at the bf16 tolerance above and, at the main path's shape, to the
+port's plain version within ``chip_smoke.py``'s bf16 tolerance (2e-3).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -109,6 +114,131 @@ def test_paged_prefill_attention(dt, b, c, h, hkv, d, bs, p):
     got = ops.paged_prefill_attention(tq, tkp, tvp, tbt, tqp)
     np.testing.assert_allclose(npf(got), npf(want), **tol(dt))
     assert not npf(got)[qpos < 0].any()
+
+
+# The bf16 paged-prefill kernel's arithmetic (csrc/paged_prefill.cu,
+# paged_prefill_tc_kernel), emulated in plain torch: rows r = j * G + g in
+# tiles of 64, keys in tiles of 64 up to the row tile's largest q_pos, S in
+# f32 from bf16 inputs, online softmax with the running max m in raw score
+# units and p = 2^(s c - m c), c = log2(e) / sqrt(D), masked probabilities
+# set to 0, P split into bf16 hi and lo parts, f32 accumulation, one
+# division by max(l, 1e-20) and one bf16 rounding.
+NEG_INF = -1e30
+
+
+def emulate_prefill_tc(q, k_pages, v_pages, tables, q_pos):
+    b, c, h, d = q.shape
+    _, bs, hkv, _ = k_pages.shape
+    g, rows = h // hkv, c * (h // hkv)
+    scale = torch.tensor(1.4426950408889634 / np.sqrt(d), dtype=torch.float32)
+    neg = torch.tensor(NEG_INF)
+    qr = q.float().reshape(b, c, hkv, g, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, hkv, rows, d)
+    qpr = q_pos.long()[:, :, None].expand(b, c, g).reshape(b, rows)
+    out = torch.zeros(b, hkv, rows, d)
+    for bi in range(b):
+        for r0 in range(0, rows, 64):
+            r = slice(r0, min(rows, r0 + 64))
+            qp = qpr[bi, r]
+            n_tok = min(int(qp.max()) + 1, tables.shape[1] * bs)
+            m = torch.full((hkv, qp.shape[0]), NEG_INF)
+            l = torch.zeros(hkv, qp.shape[0])
+            o = torch.zeros(hkv, qp.shape[0], d)
+            for t0 in range(0, n_tok, 64):
+                keys = torch.arange(t0, t0 + 64)
+                ok = keys < n_tok               # later rows are zero-filled
+                pg = tables[bi].long()[torch.where(ok, keys // bs, 0)]
+                kt = k_pages[pg, keys % bs].float() * ok[:, None, None]
+                vt = v_pages[pg, keys % bs].float() * ok[:, None, None]
+                keep = (keys[None, :] <= qp[:, None]) & ok[None, :]
+                s = torch.einsum("krd,tkd->krt", qr[bi, :, r], kt)
+                s = torch.where(keep, s, neg)
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp2((m - m_new) * scale)
+                p = torch.where(keep, torch.exp2(
+                    s * scale - (m_new * scale)[..., None]), torch.zeros(()))
+                l = l * alpha + p.sum(-1)
+                hi = p.to(torch.bfloat16).float()
+                lo = (p - hi).to(torch.bfloat16).float()
+                o = o * alpha[..., None] \
+                    + torch.einsum("krt,tkd->krd", hi, vt) \
+                    + torch.einsum("krt,tkd->krd", lo, vt)
+                m = m_new
+            out[bi, :, r] = o / torch.clamp(l, min=1e-20)[..., None]
+    return out.reshape(b, hkv, c, g, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, c, h, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,c,h,hkv,d,bs,p", [
+    (2, 12, 10, 2, 32, 8, 6),    # G = 5, C * G = 60: one ragged row tile
+    (2, 20, 8, 1, 32, 8, 12),    # G = 8: three row tiles, two key tiles
+    (3, 9, 2, 2, 16, 12, 10),    # G = 1, a block size that splits tiles
+])
+def test_prefill_tc_emulation_matches_pallas(b, c, h, hkv, d, bs, p):
+    """The emulated bf16 kernel against the Pallas kernel (interpret mode)
+    and the JAX oracle, at the bf16 attention tolerance of this file."""
+    rng = np.random.default_rng(13)
+    n = p * b + 2
+    q, tq = pair(rng.standard_normal((b, c, h, d)), "bf16")
+    kp, tkp = pair(rng.standard_normal((n, bs, hkv, d)), "bf16")
+    vp, tvp = pair(rng.standard_normal((n, bs, hkv, d)), "bf16")
+    bt, tbt = ints(rng.integers(0, n, (b, p)))
+    qpos = np.full((b, c), -1, np.int32)
+    for i in range(b - 1):
+        start = int(rng.integers(0, p * bs - c))
+        valid = int(rng.integers(1, c + 1))
+        qpos[i, :valid] = start + np.arange(valid)
+    qpos[0, -1] = p * bs - 1              # the table's last key
+    qp, tqp = ints(qpos)
+    got = emulate_prefill_tc(tq, tkp, tvp, tbt, tqp)
+    np.testing.assert_allclose(
+        npf(got), npf(jops.paged_prefill_attention(q, kp, vp, bt, qp)),
+        **tol("bf16"))
+    np.testing.assert_allclose(
+        npf(got), npf(JR.paged_prefill_attention_ref(q, kp, vp, bt, qp)),
+        **tol("bf16"))
+    assert not npf(got)[qpos < 0].any()
+
+
+@pytest.mark.parametrize("p", [64, 16])
+def test_prefill_tc_emulation_at_main_path_shape(p):
+    """At the main path's shape (Qwen2.5-14B: B 8, C 32, H 40, Hkv 8,
+    D 128, bs 16; the last chunk of a 64-page / 16-page context, the last
+    row padded), the emulated bf16 kernel stays within chip_smoke.py's
+    bf16 tolerance (atol = rtol = 2e-3) of the plain version: the hi/lo
+    split of P keeps it about one bf16 step of the output or less."""
+    b, c, h, hkv, d, bs = 8, 32, 40, 8, 128, 16
+    gen = torch.Generator().manual_seed(0)
+    n = b * p + 1
+    kp, vp = (torch.randn(n, bs, hkv, d, generator=gen).bfloat16()
+              for _ in "kv")
+    q = torch.randn(b, c, h, d, generator=gen).bfloat16()
+    rng = np.random.default_rng(0)
+    tables = torch.from_numpy(
+        rng.permutation(b * p).reshape(b, p).astype(np.int32))
+    qpos = np.full((b, c), -1, np.int32)
+    qpos[:b - 1] = p * bs - c + np.arange(c)
+    qp = torch.from_numpy(qpos)
+    got = emulate_prefill_tc(q, kp, vp, tables, qp)
+    want = R.paged_prefill_attention_ref(q, kp, vp, tables, qp)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=2e-3)
+    assert not got[-1].any()
+
+
+def test_lib_path_hashes_every_header(tmp_path, monkeypatch):
+    """An edit to any csrc/*.cuh header, not only common.cuh, gives a new
+    library path, so a stale build is never reused."""
+    from repro_torch.kernels import build
+    for f in ("common.cuh", "mma.cuh", "a.cu"):
+        (tmp_path / f).write_text(f)
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.lib_path("a")
+    (tmp_path / "mma.cuh").write_text("edited")
+    second = build.lib_path("a")
+    (tmp_path / "new.cuh").write_text("new")
+    assert len({first, second, build.lib_path("a")}) == 3
+    assert first.name.startswith("a-")
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

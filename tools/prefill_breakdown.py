@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Where the bf16 paged-prefill kernel (B4) spends its time, on one GPU.
+
+    python3 tools/prefill_breakdown.py [--against DIR ...]
+
+Builds variants of ``src/repro_torch/kernels/csrc/paged_prefill.cu`` that
+each drop one part of the tensor-core tile loop, and times them with
+``chip_smoke.py``'s CUDA-graph timer at the main path's shape (Qwen2.5-14B:
+B 8, C 32, H 40, Hkv 8, D 128, bs 16, the last chunk of a 1024-token
+context, the last row padded), at 256-token contexts and at B 4 (96
+blocks, at most one per SM):
+
+- ``base``: the file as it is;
+- ``no_lo``: without the lo half of the hi/lo P V product;
+- ``no_load``: without the K/V copies after the first tile (the block
+  computes on stale tiles);
+- ``no_compute``: without S, the softmax and P V (copies and barriers
+  only).
+
+Only ``base`` computes the right answer; its error against the plain
+version is printed, the others' are not meaningful. ``--against DIR``
+also builds ``DIR/paged_prefill.cu`` (for example the ``csrc`` of a parent
+commit unpacked with ``git archive``) and times it and ``base`` in turns
+(other, base, base, other), bf16 B4, f32 B4 and bf16 B10 (int8 pages) each,
+so two versions compare inside one run on one card. Exits 1 without a
+CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+OUT = ROOT / "build" / "prefill_breakdown"
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+
+# the code of paged_prefill.cu that the variants remove
+_LO_MMA = """        mma_bf16_16816(o[2 * dp], pl, vb[0], vb[1]);
+        mma_bf16_16816(o[2 * dp + 1], pl, vb[2], vb[3]);
+"""
+_NEXT_TILE = "    if (it + 1 < n_tiles) issue(st ^ 1);\n"
+_COMPUTE_FROM = "    const __nv_bfloat16* ks = kv_s + 2 * st * TILE;\n"
+_COMPUTE_TO = ("\n#pragma unroll\n  for (int i = 0; i < 2; ++i) {\n"
+               "    float l = l_r[i];")
+
+
+def variants(src: str) -> dict:
+    """The source of every variant, from the source of ``base``."""
+    for part in (_LO_MMA, _NEXT_TILE, _COMPUTE_FROM, _COMPUTE_TO):
+        if part not in src:
+            raise SystemExit("prefill_breakdown: paged_prefill.cu no longer "
+                             "has the code a variant removes:\n" + part)
+    a, b = src.index(_COMPUTE_FROM), src.index(_COMPUTE_TO)
+    return {"base": src, "no_lo": src.replace(_LO_MMA, ""),
+            "no_load": src.replace(_NEXT_TILE, ""),
+            "no_compute": src[:a] + "    (void)t0;\n  }\n" + src[b:]}
+
+
+def build_all(sources: dict) -> dict:
+    """Compile every ``{name: path to .cu}`` in parallel; returns the
+    loaded libraries and prints each tensor-core kernel's D = 128
+    register and spill line."""
+    from repro_torch.kernels import build
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, cu in sources.items():
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(CSRC),
+               "-o", str(OUT / f"{name}.so"), str(cu)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and "tc_kernelILi128" in line:
+                print(f"  {name}: {lines[i + 2].strip()} | "
+                      f"{lines[i + 3].strip()}", flush=True)
+        libs[name] = ctypes.CDLL(str(OUT / f"{name}.so"))
+    return libs
+
+
+def case(b: int, p: int, dt):
+    """Inputs of one B4 call: the last 32-token chunk of a p-page context
+    per row, the last row padded, random tables; plus the pools quantized
+    to int8 for B10."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import BS, C, D, H, HKV
+    from repro_torch.kernels import ref as R
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = b * p + 1
+    kp, vp = (torch.randn((n, BS, HKV, D), generator=gen, device=dev).to(dt)
+              for _ in "kv")
+    q = torch.randn((b, C, H, D), generator=gen, device=dev).to(dt)
+    tables = torch.as_tensor(np.random.default_rng(0).permutation(b * p)
+                             .reshape(b, p).astype(np.int32)).to(dev)
+    qpos = np.full((b, C), -1, np.int32)
+    qpos[:b - 1] = p * BS - C + np.arange(C)
+    qp = torch.as_tensor(qpos).to(dev)
+    return dict(q=q, kp=kp, vp=vp, tables=tables, qp=qp,
+                kq=R.quantize_block_ref(kp), vq=R.quantize_block_ref(vp))
+
+
+def caller(lib, c: dict, kind: str):
+    """A closure launching ``kind`` (``b4`` or ``b10``) from ``lib`` on the
+    inputs ``c``, and the output it writes."""
+    import torch
+
+    from chip_smoke import BS, HKV
+    from repro_torch.kernels import ops
+    q, tables, qp = c["q"], c["tables"], c["qp"]
+    b, ch, h, d = q.shape
+    out = torch.empty_like(q)
+    code = 1 if q.dtype == torch.bfloat16 else 0
+    name = ("paged_prefill_attention" if kind == "b4"
+            else "paged_prefill_attention_quant")
+    fn = getattr(lib, name)
+    fn.argtypes = ops._SIGNATURES[name][1]       # the stream included
+    fn.restype = ctypes.c_int
+    pools = ([c["kp"].data_ptr(), c["vp"].data_ptr()] if kind == "b4" else
+             [c["kq"][0].data_ptr(), c["vq"][0].data_ptr(),
+              c["kq"][1].data_ptr(), c["vq"][1].data_ptr()])
+    args = (q.data_ptr(), *pools, tables.data_ptr(), qp.data_ptr(),
+            out.data_ptr(), b, ch, tables.shape[1], BS, HKV, h // HKV, d,
+            ops.PREFILL_Q_TILE, 1.0 / math.sqrt(d), code)
+
+    def call():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: cudaError {rc}")
+    return call, out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", nargs="*", default=[],
+                    help="directories holding another paged_prefill.cu")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("prefill_breakdown: needs a CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import P, graph_ms, smi
+    from repro_torch.kernels import ref as R
+
+    print(f"[device] {smi()}", flush=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    sources = {}
+    for name, text in variants((CSRC / "paged_prefill.cu").read_text()) \
+            .items():
+        sources[name] = OUT / f"{name}.cu"
+        sources[name].write_text(text)
+    others = [f"other{i}" for i in range(len(args.against))]
+    for name, d in zip(others, args.against):
+        sources[name] = Path(d).resolve() / "paged_prefill.cu"
+    libs = build_all(sources)
+
+    bf16 = torch.bfloat16
+    for b, p in ((8, P), (8, 16), (4, P)):
+        c = case(b, p, bf16)
+        want = R.paged_prefill_attention_ref(c["q"], c["kp"], c["vp"],
+                                             c["tables"], c["qp"])
+        for name in ("base", "no_lo", "no_load", "no_compute"):
+            call, out = caller(libs[name], c, "b4")
+            call()
+            torch.cuda.synchronize()
+            err = float((out.float() - want.float()).abs().max())
+            ms = graph_ms(call)
+            print(f"  B {b}, {p} pages, bf16 B4 {name:10s} {ms:.4f} ms"
+                  + (f"  max abs err {err:.3g}" if name == "base" else ""),
+                  flush=True)
+    for other, d in zip(others, args.against):
+        print(f"[against] {d}: turns {other}, base, base, {other}",
+              flush=True)
+        for dt, kind in ((bf16, "b4"), (torch.float32, "b4"),
+                         (bf16, "b10")):
+            c = case(8, P, dt)
+            times = []
+            for name in (other, "base", "base", other):
+                call, _ = caller(libs[name], c, kind)
+                times.append(graph_ms(call))
+            label = f"{'bf16' if dt == bf16 else 'f32'} {kind.upper()}"
+            print(f"  {label}: {other} {times[0]:.4f} / {times[3]:.4f} ms, "
+                  f"base {times[1]:.4f} / {times[2]:.4f} ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    versions; no CUDA device -> exit 1 before any result is printed;
 2. build: every CUDA kernel of the serving path, from ``src/repro_torch/
    kernels/csrc`` with nvcc (all sources in parallel), and nvcc's ptxas
-   register/spill report;
+   register/spill report; the registers, spill bytes and static shared
+   memory of the bf16 tensor-core kernels (B4 and B10 at D 128, B15 at
+   D 64) also go into the results;
 3. kernels: each kernel at the serving path's shapes for Qwen2.5-14B
    (bf16, and float32 for correctness), held against its plain PyTorch
    version (exact for writes, copies and the int8 quantize / dequantize
@@ -22,7 +24,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    computing the same function where there is one; beside them its bound
    (bytes over 3.35 TB/s or operations over the peak of their type). The
    int8-pool attention kernels take the float attention cases' queries,
-   tables and lengths over those pools quantized on the card, and their
+   tables and lengths over those pools quantized on the card (bf16 B10
+   runs the int8 instantiation of B4's tensor-core kernel), and their
    difference from the float kernels on the same inputs (the int8 error)
    is printed, ungated. B4 is held and timed a second time at the serve
    phases' own contexts (variant ``ctx256``: 256-token contexts through
@@ -60,7 +63,8 @@ B9-B13b (``paged_attention_quant``, ``paged_prefill_attention_quant``,
 ``block_scatter``) run in the kernel phase only: no serving path of the
 JAX package calls them, so their launches are those of phase 3. B14 and
 B15 are held and timed in phase 3 at the families phase's shapes (B14 at
-Mamba2's and at Hymba's); their launches are those of phase 6.
+Mamba2's and at Hymba's; bf16 B15 is its tensor-core kernel); their
+launches are those of phase 6.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``. With ``--only
@@ -74,6 +78,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -168,6 +173,16 @@ KERNEL_PHASE_ONLY = ("kv_block_quant", "kv_block_dequant",
                      "paged_attention_quant", "paged_prefill_attention_quant",
                      "block_gather", "block_scatter")
 NO_LIBRARY = "none: no single PyTorch call computes this function"
+# the bf16 tensor-core kernels whose ptxas resources the results keep:
+# label -> (source, pattern of the mangled name)
+TC_KERNELS = {
+    "paged_prefill_tc_kernel<bf16, 128> (B4)": (
+        "paged_prefill", r"paged_prefill_tc_kernelI13__nv_bfloat16Li128E"),
+    "paged_prefill_tc_kernel<int8_t, 128> (B10)": (
+        "paged_prefill", r"paged_prefill_tc_kernelIaLi128E"),
+    "swa_attention_tc_kernel<64> (B15)": (
+        "swa_attention", r"swa_attention_tc_kernelILi64E"),
+}
 
 
 def smi() -> str:
@@ -176,6 +191,30 @@ def smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def tc_resources(report) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel of
+    ``TC_KERNELS``, read from ``report(source)``, nvcc's ``-Xptxas -v``
+    output; None for a kernel the report does not name."""
+    out = {}
+    for label, (source, pattern) in TC_KERNELS.items():
+        lines = report(source).splitlines()
+        out[label] = None
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and re.search(pattern, line):
+                props = " ".join(lines[i + 1:i + 4])
+                nums = {k: re.search(rx, props) for k, rx in (
+                    ("registers", r"Used (\d+) registers"),
+                    ("spill_stores", r"(\d+) bytes spill stores"),
+                    ("spill_loads", r"(\d+) bytes spill loads"),
+                    ("static_smem", r"(\d+) bytes smem"))}
+                out[label] = {k: int(m.group(1)) if m else None
+                              for k, m in nums.items()}
+                if nums["registers"] and out[label]["static_smem"] is None:
+                    out[label]["static_smem"] = 0     # ptxas omits 0 bytes
+                break
+    return out
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1159,6 +1198,9 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line \
                     or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    tc = tc_resources(build.ptxas_report)
+    for label, res in tc.items():
+        print(f"  tensor cores: {label}: {res}", flush=True)
 
     print("[kernels] main-path shapes, bf16 timings: ms is the kernel in a "
           "CUDA graph; eager, plain and library are eager calls on the same "
@@ -1199,7 +1241,8 @@ def main() -> int:
     total_s = time.perf_counter() - t_start
     results = dict(card=card, device=kind, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,
-                   total_s=total_s, phase_s=phase_s, kernels=kernels,
+                   total_s=total_s, phase_s=phase_s, ptxas_tc=tc,
+                   kernels=kernels,
                    serve=serve, migration=migration, families=families,
                    check=check)
     if args.out:

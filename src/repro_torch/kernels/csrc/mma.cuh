@@ -1,7 +1,10 @@
 // Warp-level tensor-core and asynchronous-copy helpers (sm_80 and later,
 // built here for sm_90a): mma.sync m16n8k16 on bf16 with f32
 // accumulation, ldmatrix from shared memory, and 16-byte cp.async copies
-// from global to shared memory with commit / wait groups.
+// from global to shared memory with commit / wait groups; and the three
+// steps of one 64-key tile of a flash-attention loop that the bf16
+// attention kernels share (paged_prefill_tc_kernel, B4 and B10;
+// swa_attention_tc_kernel, B15): S = Q K^T, the online softmax, O += P V.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * grp + tig):
 //   A (16 x 16, row-major), 4 registers of two bf16 each:
@@ -16,6 +19,10 @@
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "common.cuh"
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -97,3 +104,140 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
+
+// ---------------------------------------------------------------------------
+// one 64-key tile of a flash-attention loop, per warp of 16 query rows
+// ---------------------------------------------------------------------------
+// Q sits in registers as A fragments, qa[kk] = rows (grp, grp + 8), dims
+// kk * 16 ..; K and V tiles are 64 rows of D bf16 in shared memory with
+// row stride D + 8 (an odd number of 16-byte units, so the eight rows of
+// every ldmatrix fall in eight different bank groups). s[n][x] is row
+// grp + 8 (x >> 1), key 8 n + 2 tig + (x & 1) of the tile.
+
+// ldmatrix row offsets (elements) of this lane inside a tile of row stride
+// ld: K as the B operand of Q K^T (keys as n, dims as k) and V transposed
+// as the B operand of P V (keys as k, dims as n)
+__device__ __forceinline__ int k_lane_offset(int lane, int ld) {
+  return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int v_lane_offset(int lane, int ld) {
+  return (((lane >> 3) & 1) * 8 + (lane & 7)) * ld + (lane >> 4) * 8;
+}
+
+// S = Q K^T: 16 rows x 64 keys, 8 n-tiles of 8 keys
+template <int D>
+__device__ __forceinline__ void tile_scores(float (&s)[8][4],
+                                            const uint32_t (&qa)[D / 16][4],
+                                            const __nv_bfloat16* ks,
+                                            int k_lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[n][x] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, smem_u32(ks + np * 16 * LD + kk * 16 + k_lane));
+      mma_bf16_16816(s[2 * np], qa[kk], kb[0], kb[1]);
+      mma_bf16_16816(s[2 * np + 1], qa[kk], kb[2], kb[3]);
+    }
+}
+
+// One online-softmax step over the tile's scores s, which it replaces by
+// the probabilities p. The running max m is kept in raw score units and p
+// = 2^(s c - m c), c = scale_log2 = log2(e) * softmax scale: one FMA and
+// one MUFU ex2. Row max and row sum are reduced over the four lanes of a
+// quad by shuffles; l gathers this lane's part of the row sum (the quad's
+// lanes are summed at the end). O is rescaled only when some row's max
+// moved. live(n, x) says whether s[n][x]'s key is visible to its row; a
+// tile that every row of the warp sees whole passes full (a warp-uniform
+// branch) and skips the mask. A masked key gets probability 0
+// explicitly, not exp(NEG_INF - m): NEG_INF is finite, and a row whose
+// keys are all masked so far would otherwise count exp(0) = 1 per key.
+template <int DT, typename Live>
+__device__ __forceinline__ void tile_softmax(float (&s)[8][4],
+                                             float (&m_r)[2],
+                                             float (&l_r)[2],
+                                             float (&o)[DT][4],
+                                             float scale_log2, bool full,
+                                             Live live) {
+  if (!full) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        if (!live(n, x)) s[n][x] = NEG_INF;
+  }
+  float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) mt[x >> 1] = fmaxf(mt[x >> 1], s[n][x]);
+  float alpha[2], mc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+    const float m_new = fmaxf(m_r[i], mt[i]);
+    alpha[i] = fast_exp2((m_r[i] - m_new) * scale_log2);
+    m_r[i] = m_new;
+    mc[i] = m_new * scale_log2;
+    l_r[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      float p = fast_exp2(fmaf(s[n][x], scale_log2, -mc[x >> 1]));
+      // nested: written as one `!full && !live` test, this step cost the
+      // B4 instantiation two registers and 7 % of its time on an H100
+      if (!full) {
+        if (!live(n, x)) p = 0.f;
+      }
+      s[n][x] = p;
+      l_r[x >> 1] += p;
+    }
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+  }
+}
+
+// O += P V. The probabilities' accumulators serve as A fragments (FA2's
+// register layout: keys kk * 16 .. + 15 are n-tiles 2 kk and 2 kk + 1),
+// V is read with ldmatrix.trans. P is split as hi + lo, both bf16, with
+// two MMAs per k-step, so P keeps about 16 bits: bf16 P alone leaves the
+// output up to one bf16 step from an f32 softmax.
+template <int D>
+__device__ __forceinline__ void tile_pv(float (&o)[D / 8][4],
+                                        const float (&p)[8][4],
+                                        const __nv_bfloat16* vs,
+                                        int v_lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t ph[4], pl[4];
+    split_bf16(p[2 * kk][0], p[2 * kk][1], ph[0], pl[0]);
+    split_bf16(p[2 * kk][2], p[2 * kk][3], ph[1], pl[1]);
+    split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], ph[2], pl[2]);
+    split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, smem_u32(vs + kk * 16 * LD + dp * 16 + v_lane));
+      mma_bf16_16816(o[2 * dp], ph, vb[0], vb[1]);
+      mma_bf16_16816(o[2 * dp + 1], ph, vb[2], vb[3]);
+      mma_bf16_16816(o[2 * dp], pl, vb[0], vb[1]);
+      mma_bf16_16816(o[2 * dp + 1], pl, vb[2], vb[3]);
+    }
+  }
+}
+

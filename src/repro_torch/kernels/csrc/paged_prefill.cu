@@ -14,50 +14,61 @@
 // (query, visible key) pair. At C = 32 and G = 5 that is about 20 flops
 // per byte of bf16 K/V, under the 295 flop/byte ridge.
 //
-// bf16 pools: a tensor-core tile loop (paged_prefill_tc_kernel), in the
-// manner of FlashAttention-2. The C * G query rows of one kv head are
-// ordered r = j * G + g (query j, head kvh * G + g); a block of 4 warps
-// takes 64 of them, 16 per warp (one m16 fragment), so the grid is
+// bf16 queries (paged_prefill_tc_kernel, with the page type as a template
+// parameter: bf16 pools for B4, int8 pages for B10): a tensor-core tile
+// loop, in the manner of FlashAttention-2. The C * G query rows of one kv
+// head are ordered r = j * G + g (query j, head kvh * G + g); a block of 4
+// warps takes 64 of them, 16 per warp (one m16 fragment), so the grid is
 // (ceil(C * G / 64), Hkv, B) and a sequence's keys are read once per 64
 // rows instead of once per query tile. The block walks the keys only up
 // to the largest q_pos among its rows, in tiles of 64 tokens that may span
-// pages, through a two-stage shared-memory ring of K and V tiles filled
-// by 16-byte cp.async.cg copies: the next tile's copies are in flight
-// while the block computes on the current one. For each tile one thread
-// per key reads its page id and divides by bs once, leaving the key's
-// pool offset in shared memory; the copy threads only add their chunk's
-// column. Keys past those the block needs are zero-filled. Rows are padded
-// by 16 bytes (D + 8 bf16), an odd number of 16-byte units, so the eight
-// rows of every ldmatrix fall in eight different bank groups.
-//   Q sits in registers as mma A fragments for the whole walk. S = Q K^T
-// is mma.sync m16n8k16 (bf16 in, f32 accumulators), K read with ldmatrix
-// as the B operand. The online softmax runs in registers: the running max
-// m is kept in raw score units and p = 2^(s c - m c), c = log2(e) /
-// sqrt(D), is one FMA and one MUFU ex2; row max and row sum are reduced
-// over the four lanes of a quad by shuffles, O is rescaled only when some
-// row's max moved, and a tile that every row of the warp sees whole skips
-// the mask. A masked key gets probability 0 explicitly, not
-// exp(NEG_INF - m): NEG_INF is finite, and a row whose keys are all masked
-// so far would otherwise count exp(0) = 1 per key. Rows with q_pos = -1
-// end with l = 0 and write zeros. O += P V reuses the S accumulators as A
-// fragments (FA2's register layout), V read with ldmatrix.trans. P is
-// split as hi + lo, both bf16, with two MMAs per k-step, so P keeps about
-// 16 bits: bf16 P alone leaves the output up to one bf16 step from the
-// plain version's f32 softmax, at the edge of the 2e-3 tolerance; the
-// split costs 1.5x the MMA work, which the byte bound pays for. O is
-// divided by max(l, 1e-20) and written as bf16 straight from registers.
-// D is a template parameter (every multiple of 16 up to 128), G <= 16, bs
-// any multiple of 4. Offsets are int64_t. Shared memory is 4 * 64 *
-// (D + 8) * 2 bytes for the ring plus 1 KB of offsets (69 KB at D = 128),
-// so two blocks fit on an SM. At the main path's shape the kernel is
-// bound by latency and shared-memory reads, not bytes from HBM: with one
-// or two blocks per SM, every warp reads the whole K and V tile through
-// ldmatrix for its 16 rows. Left for later: wgmma with a TMA ring and a
-// producer warp (A and B from shared memory for 64 rows at once), and
-// key splits for long contexts at small batch.
+// pages, through a two-stage shared-memory ring filled by 16-byte
+// cp.async.cg copies: the next tile's copies are in flight while the
+// block computes on the current one. For each tile one thread per key
+// reads its page id and divides by bs once, leaving the key's pool offset
+// in shared memory; the copy threads only add their chunk's column. Keys
+// past those the block needs are zero-filled. Rows are padded by 16 bytes
+// (D + 8 bf16), an odd number of 16-byte units, so the eight rows of every
+// ldmatrix fall in eight different bank groups.
+//   Q sits in registers as mma A fragments for the whole walk. Each tile
+// takes the three steps of mma.cuh: S = Q K^T (mma.sync m16n8k16, bf16 in,
+// f32 accumulators, K read with ldmatrix), the online softmax in
+// registers (raw score units, MUFU ex2; a tile that every row of the warp
+// sees whole skips the mask; masked keys get probability 0 explicitly),
+// and O += P V with P split hi + lo in bf16, so P keeps about 16 bits
+// (bf16 P alone leaves the output up to one bf16 step from the plain
+// version's f32 softmax, at the edge of the 2e-3 tolerance; the split
+// costs 1.5x the MMA work, which the byte bound pays for). Rows with
+// q_pos = -1 end with l = 0 and write zeros. O is divided by max(l,
+// 1e-20) and written as bf16 straight from registers. D is a template
+// parameter (every multiple of 16 up to 128), G <= 16, bs any multiple of
+// 4. Offsets are int64_t.
+//   int8 pages (B10): the ring holds the int8 rows (D bytes, half of
+// bf16's), and once a thread's copies of a tile have landed it converts
+// the same chunks to bf16 into one K/V tile pair that the ldmatrix
+// addressing reads (exact: |q| <= 127 fits bf16's significand), so the
+// conversion needs no barrier of its own. The page scales are folded into
+// the arithmetic, not into the tile: the thread that loads a key's offset
+// also loads its page's K and V scale (0 past the keys the block needs)
+// into per-tile slots; S = (Q K_int) * k_scale[key] in f32 before the
+// mask, l sums the unscaled p, and P V takes p * v_scale[key] before the
+// hi/lo split. Dequantizing into the bf16 tile instead would round every
+// K and V element to bf16 (up to 2^-9 of it); folded, the kernel differs
+// from the plain version (dequantize in f32, then f32 attention) only in
+// f32 summation order and the hi/lo P, as B4 does.
+//   Shared memory at D = 128: bf16 pages 4 * 64 * 136 * 2 bytes for the
+// ring plus 1 KB of offsets (69 KB); int8 pages 34 KB for the tile pair,
+// 32 KB for the int8 ring and 1.5 KB of offsets and scales (68 KB); two
+// blocks fit on an SM. At the main path's shape the kernel is bound by
+// latency and shared-memory reads, not bytes from HBM: with one or two
+// blocks per SM, every warp reads the whole K and V tile through ldmatrix
+// for its 16 rows. Left for later: wgmma with a TMA ring and a producer
+// warp (A and B from shared memory for 64 rows at once), and key splits
+// for long contexts at small batch.
 //
-// f32 pools and int8 pages (paged_prefill_kernel): the first design, with
-// the page type as a template parameter, as in paged_attention.cu. One
+// f32 queries, and bf16 queries over int8 pages outside the tensor-core
+// kernel's shapes (paged_prefill_kernel): the first design, with the page
+// type as a template parameter, as in paged_attention.cu. One
 // thread block per (query tile of QT queries, kv head, sequence); the
 // tile's QT * G query rows sit in shared memory in f32. The block walks
 // the keys up to the tile's largest q_pos in tiles of up to 64 tokens:
@@ -73,8 +84,7 @@
 // (float(q) * scale, one f32 product rounded once); the 16-byte vector
 // path needs D % 16 == 0. What this design leaves: every query tile
 // re-reads its keys (C / QT times), scores and values are scalar f32
-// FMAs, and tiles are staged synchronously; bringing int8 pages into the
-// tensor-core loop is the next step.
+// FMAs, and tiles are staged synchronously.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -316,37 +326,53 @@ static int launch_group(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 pools: the tensor-core tile loop
+// bf16 queries over bf16 pools (B4) or int8 pages (B10): the tensor-core
+// tile loop
 // ---------------------------------------------------------------------------
 
 constexpr int TC_THREADS = 128;   // 4 warps
 constexpr int TC_ROWS = 64;       // query rows per block, 16 per warp
 constexpr int TC_KEYS = 64;       // keys per tile
-constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// bf16 pages: a two-stage ring of K/V tiles and the ring's key offsets.
+// int8 pages: one bf16 K/V tile pair, a two-stage int8 ring, the key
+// offsets and a two-stage K/V scale per key.
+template <typename P, int D>
 constexpr size_t tc_smem_bytes() {
-  return 4 * TC_KEYS * (D + 8) * sizeof(__nv_bfloat16) +
-         2 * TC_KEYS * sizeof(int64_t);
+  return std::is_same<P, int8_t>::value
+             ? 2 * TC_KEYS * (D + 8) * sizeof(__nv_bfloat16) +
+                   4 * TC_KEYS * D + 2 * TC_KEYS * sizeof(int64_t) +
+                   4 * TC_KEYS * sizeof(float)
+             : 4 * TC_KEYS * (D + 8) * sizeof(__nv_bfloat16) +
+                   2 * TC_KEYS * sizeof(int64_t);
 }
 
-template <int D>
+template <typename P, int D>
 __global__ void __launch_bounds__(TC_THREADS, 2) paged_prefill_tc_kernel(
-    const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ k_pages,
-    const __nv_bfloat16* __restrict__ v_pages,
-    const int32_t* __restrict__ tables, const int32_t* __restrict__ q_pos,
-    __nv_bfloat16* __restrict__ out, int chunk, int num_pages,
-    int block_size, int n_kv, int group, float scale_log2) {
+    const __nv_bfloat16* __restrict__ q, const P* __restrict__ k_pages,
+    const P* __restrict__ v_pages, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
+    const int32_t* __restrict__ q_pos, __nv_bfloat16* __restrict__ out,
+    int chunk, int num_pages, int block_size, int n_kv, int group,
+    float scale_log2) {
+  constexpr bool QUANT = std::is_same<P, int8_t>::value;
   constexpr int LD = D + 8;            // shared row stride (bf16)
   constexpr int TILE = TC_KEYS * LD;   // elements of one K or V tile
   constexpr int KSTEPS = D / 16;       // k-steps of Q K^T
   constexpr int DT = D / 8;            // n-tiles of O
-  constexpr int CPR = D / 8;           // 16-byte chunks per K/V row
+  constexpr int E = 16 / sizeof(P);    // page elements per 16-byte chunk
+  constexpr int CPR = D / E;           // 16-byte chunks per K/V row
+  constexpr int CHUNKS = TC_KEYS * CPR;
+  constexpr int RING8 = QUANT ? 4 * TC_KEYS * D : 0;   // int8 ring bytes
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [stage][K, V][TILE], then [stage][TC_KEYS] key offsets
+  // bf16: [stage][K, V][TILE]; int8: [K, V][TILE], then the int8 ring
+  // [stage][K, V][TC_KEYS * D]; then [stage][TC_KEYS] key offsets; int8:
+  // then [stage][K, V][TC_KEYS] scales
   __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  int64_t* off_s = reinterpret_cast<int64_t*>(kv_s + 4 * TILE);
+  unsigned char* ring8 =
+      smem_raw + (QUANT ? 2 : 4) * TILE * sizeof(__nv_bfloat16);
+  int64_t* off_s = reinterpret_cast<int64_t*>(ring8 + RING8);
+  float* sc_s = reinterpret_cast<float*>(off_s + 2 * TC_KEYS);
   __shared__ int max_pos_s;
 
   const int G = group, bs = block_size, rows = chunk * group;
@@ -397,35 +423,83 @@ __global__ void __launch_bounds__(TC_THREADS, 2) paged_prefill_tc_kernel(
 
   const int64_t tok_stride = (int64_t)n_kv * D;
   const int64_t page_stride = (int64_t)bs * tok_stride;
-  const __nv_bfloat16* k_head = k_pages + (int64_t)kvh * D;
-  const __nv_bfloat16* v_head = v_pages + (int64_t)kvh * D;
+  const P* k_head = k_pages + (int64_t)kvh * D;
+  const P* v_head = v_pages + (int64_t)kvh * D;
   const int32_t* tbl = tables + b * num_pages;
 
+  // int8: the K and V scales of the key whose offset this thread loaded
+  // last; they go to shared memory only after the next barrier, when no
+  // warp reads that scale slot any more
+  float key_ks = 0.f, key_vs = 0.f;
   // the pool offset of each key of tile `tile` (-1 past the keys the
   // block needs) into offset slot `st`: one thread per key reads its page
-  // id and divides by bs
+  // id and divides by bs (int8: and reads the page's two scales, 0 past
+  // the keys the block needs)
   auto load_offsets = [&](int tile, int st) {
     if (tid < TC_KEYS) {
       const int pos = tile * TC_KEYS + tid;
+      const int pg = pos < n_tok ? tbl[pos / bs] : 0;
       off_s[st * TC_KEYS + tid] =
-          pos < n_tok ? (int64_t)tbl[pos / bs] * page_stride +
+          pos < n_tok ? (int64_t)pg * page_stride +
                             (int64_t)(pos % bs) * tok_stride
                       : -1;
+      if constexpr (QUANT) {
+        key_ks = pos < n_tok ? k_scale[(int64_t)pg * n_kv + kvh] : 0.f;
+        key_vs = pos < n_tok ? v_scale[(int64_t)pg * n_kv + kvh] : 0.f;
+      }
     }
   };
   // cp.async of the K and V rows in offset slot `st` into ring stage `st`
+  // (int8: the int8 ring, rows of D bytes; and the scales into slot st)
   auto issue = [&](int st) {
     const int64_t* off = off_s + st * TC_KEYS;
-    __nv_bfloat16* ks = kv_s + 2 * st * TILE;
-    __nv_bfloat16* vs = ks + TILE;
 #pragma unroll
-    for (int i0 = 0; i0 < TC_KEYS * CPR; i0 += TC_THREADS) {
+    for (int i0 = 0; i0 < CHUNKS; i0 += TC_THREADS) {
       const int i = i0 + tid, t = i / CPR, c = i % CPR;
+      if (CHUNKS % TC_THREADS != 0 && i >= CHUNKS) break;
       const int64_t key_off = off[t];
-      const int64_t src = key_off >= 0 ? key_off + c * 8 : 0;
+      const int64_t src = key_off >= 0 ? key_off + c * E : 0;
       const int n = key_off >= 0 ? 16 : 0;   // 0: zero-fill the chunk
-      cp_async_16(smem_u32(ks + t * LD + c * 8), k_head + src, n);
-      cp_async_16(smem_u32(vs + t * LD + c * 8), v_head + src, n);
+      uint32_t kd, vd;
+      if constexpr (QUANT) {
+        kd = smem_u32(ring8 + 2 * st * TC_KEYS * D + i * 16);
+        vd = kd + TC_KEYS * D;
+      } else {
+        kd = smem_u32(kv_s + 2 * st * TILE + t * LD + c * 8);
+        vd = kd + TILE * sizeof(__nv_bfloat16);
+      }
+      cp_async_16(kd, k_head + src, n);
+      cp_async_16(vd, v_head + src, n);
+    }
+    if constexpr (QUANT) {
+      if (tid < TC_KEYS) {
+        sc_s[2 * st * TC_KEYS + tid] = key_ks;
+        sc_s[(2 * st + 1) * TC_KEYS + tid] = key_vs;
+      }
+    }
+  };
+  // int8: once this thread's copies of ring stage `st` have landed, it
+  // converts the same chunks to bf16 (exact: |q| <= 127) in the K/V tile
+  // pair, so no barrier sits between the copy and the conversion
+  auto convert = [&](int st) {
+#pragma unroll
+    for (int i0 = 0; i0 < CHUNKS; i0 += TC_THREADS) {
+      const int i = i0 + tid, t = i / CPR, c = i % CPR;
+      if (CHUNKS % TC_THREADS != 0 && i >= CHUNKS) break;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            ring8 + (2 * st + kv) * TC_KEYS * D + i * 16);
+        const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+        uint32_t w[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          w[u] = pack_bf16((float)e[2 * u], (float)e[2 * u + 1]);
+        uint4* dst = reinterpret_cast<uint4*>(kv_s + kv * TILE + t * LD +
+                                              c * 16);
+        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
     }
   };
 
@@ -435,13 +509,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2) paged_prefill_tc_kernel(
 #pragma unroll
     for (int x = 0; x < 4; ++x) o[n][x] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
-
-  // ldmatrix row addresses of this lane inside a tile: K (keys as n, dims
-  // as k) and V transposed (keys as k, dims as n)
-  const int k_lane =
-      ((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
-  const int v_lane =
-      (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8;
+  const int k_lane = k_lane_offset(lane, LD);
+  const int v_lane = v_lane_offset(lane, LD);
 
   if (n_tiles > 0) {
     load_offsets(0, 0);
@@ -452,103 +521,51 @@ __global__ void __launch_bounds__(TC_THREADS, 2) paged_prefill_tc_kernel(
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it & 1, t0 = it * TC_KEYS;
     if (it + 1 < n_tiles) load_offsets(it + 1, st ^ 1);
-    // the other stage's tile and offsets are free once every warp is past
-    // the previous iteration
+    // the other stage's tile, offsets and scales (int8: and the bf16 tile
+    // pair) are free once every warp is past the previous iteration
     __syncthreads();
     if (it + 1 < n_tiles) issue(st ^ 1);
     cp_async_commit();
     cp_async_wait<1>();   // this thread's copies of tile `it` have landed
+    if constexpr (QUANT) convert(st);
     __syncthreads();      // and everyone's
-    const __nv_bfloat16* ks = kv_s + 2 * st * TILE;
+    const __nv_bfloat16* ks = kv_s + (QUANT ? 0 : 2 * st * TILE);
     const __nv_bfloat16* vs = ks + TILE;
 
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
     float s[8][4];
+    tile_scores<D>(s, qa, ks, k_lane);
+    // int8: S = (Q K_int) * k_scale[key], in f32 before the mask
+    if constexpr (QUANT) {
+      const float* ksc = sc_s + 2 * st * TC_KEYS + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) s[n][x] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, smem_u32(ks + np * 16 * LD + kk * 16 + k_lane));
-        mma_bf16_16816(s[2 * np], qa[kk], kb[0], kb[1]);
-        mma_bf16_16816(s[2 * np + 1], qa[kk], kb[2], kb[3]);
+      for (int n = 0; n < 8; ++n) {
+        const float2 f = *reinterpret_cast<const float2*>(ksc + n * 8);
+        s[n][0] *= f.x;
+        s[n][1] *= f.y;
+        s[n][2] *= f.x;
+        s[n][3] *= f.y;
       }
-
-    // online softmax: m in raw score units, p = 2^(s c - m c) with
-    // c = log2(e) / sqrt(D); s[n][x] is row grp + 8 (x >> 1), key
-    // t0 + 8 n + 2 tig + (x & 1). A tile whose keys every row of the warp
-    // sees skips the mask (a warp-uniform branch).
+    }
+    // a tile whose keys every row of the warp sees skips the mask
     const bool full =
         t0 + TC_KEYS <= n_tok && t0 + TC_KEYS - 1 <= warp_min_qp;
-    if (!full) {
+    tile_softmax<DT>(s, m_r, l_r, o, scale_log2, full, [&](int n, int x) {
+      const int key = t0 + n * 8 + 2 * tig + (x & 1);
+      return key <= qp[x >> 1] && key < n_tok;
+    });
+    // int8: l sums the unscaled p; P V takes p * v_scale[key]
+    if constexpr (QUANT) {
+      const float* vsc = sc_s + (2 * st + 1) * TC_KEYS + 2 * tig;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int key = t0 + n * 8 + 2 * tig + (x & 1);
-          if (!(key <= qp[x >> 1] && key < n_tok)) s[n][x] = NEG_INF;
-        }
-    }
-    float mt[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) mt[x >> 1] = fmaxf(mt[x >> 1], s[n][x]);
-    float alpha[2], mc[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      const float m_new = fmaxf(m_r[i], mt[i]);
-      alpha[i] = fast_exp2((m_r[i] - m_new) * scale_log2);
-      m_r[i] = m_new;
-      mc[i] = m_new * scale_log2;
-      l_r[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        float p = fast_exp2(fmaf(s[n][x], scale_log2, -mc[x >> 1]));
-        if (!full) {   // masked keys: 0, never exp(NEG_INF - m)
-          const int key = t0 + n * 8 + 2 * tig + (x & 1);
-          if (!(key <= qp[x >> 1] && key < n_tok)) p = 0.f;
-        }
-        s[n][x] = p;
-        l_r[x >> 1] += p;
-      }
-    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
-#pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
+      for (int n = 0; n < 8; ++n) {
+        const float2 f = *reinterpret_cast<const float2*>(vsc + n * 8);
+        s[n][0] *= f.x;
+        s[n][1] *= f.y;
+        s[n][2] *= f.x;
+        s[n][3] *= f.y;
       }
     }
-
-    // O += P V: keys kk * 16 .. + 15 are S n-tiles 2 kk and 2 kk + 1
-#pragma unroll
-    for (int kk = 0; kk < TC_KEYS / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, smem_u32(vs + kk * 16 * LD + dp * 16 + v_lane));
-        mma_bf16_16816(o[2 * dp], ph, vb[0], vb[1]);
-        mma_bf16_16816(o[2 * dp + 1], ph, vb[2], vb[3]);
-        mma_bf16_16816(o[2 * dp], pl, vb[0], vb[1]);
-        mma_bf16_16816(o[2 * dp + 1], pl, vb[2], vb[3]);
-      }
-    }
+    tile_pv<D>(o, s, vs, v_lane);
   }
 
 #pragma unroll
@@ -566,44 +583,54 @@ __global__ void __launch_bounds__(TC_THREADS, 2) paged_prefill_tc_kernel(
   }
 }
 
-template <int D>
+template <typename P, int D>
 static int launch_tc(const void* q, const void* k, const void* v,
-                     const void* tables, const void* q_pos, void* out,
-                     int64_t batch, int chunk, int num_pages, int block_size,
-                     int n_kv, int group, float scale, cudaStream_t s) {
-  constexpr size_t smem = tc_smem_bytes<D>();
+                     const float* ks, const float* vs, const void* tables,
+                     const void* q_pos, void* out, int64_t batch, int chunk,
+                     int num_pages, int block_size, int n_kv, int group,
+                     float scale, cudaStream_t s) {
+  constexpr size_t smem = tc_smem_bytes<P, D>();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_tc_kernel<D>,
+        paged_prefill_tc_kernel<P, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int64_t rows = (int64_t)chunk * group;
   const dim3 grid((unsigned)((rows + TC_ROWS - 1) / TC_ROWS), (unsigned)n_kv,
                   (unsigned)batch);
-  paged_prefill_tc_kernel<D><<<grid, TC_THREADS, smem, s>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int32_t*)tables,
-      (const int32_t*)q_pos, (__nv_bfloat16*)out, chunk, num_pages,
-      block_size, n_kv, group, scale * LOG2E);
+  paged_prefill_tc_kernel<P, D><<<grid, TC_THREADS, smem, s>>>(
+      (const __nv_bfloat16*)q, (const P*)k, (const P*)v, ks, vs,
+      (const int32_t*)tables, (const int32_t*)q_pos, (__nv_bfloat16*)out,
+      chunk, num_pages, block_size, n_kv, group, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 // The tensor-core kernel's shapes: D a multiple of 16 up to 128, G <= 16,
 // bs a multiple of 4, K/V 16-byte aligned (cp.async) and q/out 4-byte
-// aligned; anything else is refused.
+// aligned.
+static bool tc_takes(const void* q, const void* k, const void* v,
+                     const void* out, int head_dim) {
+  return head_dim % 16 == 0 && head_dim <= 128 &&
+         ((uintptr_t)k | (uintptr_t)v) % 16 == 0 &&
+         ((uintptr_t)q | (uintptr_t)out) % 4 == 0;
+}
+
+// P = __nv_bfloat16 (B4) or int8_t (B10, with scales ks, vs); a shape
+// outside tc_takes is refused
+template <typename P>
 static int launch_tc_dim(const void* q, const void* k, const void* v,
+                         const float* ks, const float* vs,
                          const void* tables, const void* q_pos, void* out,
                          int64_t batch, int chunk, int num_pages,
                          int block_size, int n_kv, int group, int head_dim,
                          float scale, cudaStream_t s) {
-  if (((uintptr_t)k | (uintptr_t)v) % 16 != 0 ||
-      ((uintptr_t)q | (uintptr_t)out) % 4 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!tc_takes(q, k, v, out, head_dim)) return (int)cudaErrorInvalidValue;
 #define PP_TC_CASE(DIM)                                                     \
   case DIM:                                                                 \
-    return launch_tc<DIM>(q, k, v, tables, q_pos, out, batch, chunk,        \
-                          num_pages, block_size, n_kv, group, scale, s);
+    return launch_tc<P, DIM>(q, k, v, ks, vs, tables, q_pos, out, batch,    \
+                             chunk, num_pages, block_size, n_kv, group,     \
+                             scale, s);
   switch (head_dim) {
     PP_TC_CASE(16)
     PP_TC_CASE(32)
@@ -634,15 +661,17 @@ extern "C" int paged_prefill_attention(
   if (int e = check_args(q_tile, group, head_dim, block_size)) return e;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DTYPE_BF16)      // the tensor-core kernel; q_tile unused
-    return launch_tc_dim(q, k_pages, v_pages, tables, q_pos, out, batch,
-                         chunk, num_pages, block_size, n_kv, group, head_dim,
-                         scale, s);
+    return launch_tc_dim<__nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, tables, q_pos, out, batch,
+        chunk, num_pages, block_size, n_kv, group, head_dim, scale, s);
   return launch_group<float, float>(
       q, k_pages, v_pages, nullptr, nullptr, tables, q_pos, out, batch,
       chunk, num_pages, block_size, n_kv, group, head_dim, q_tile, scale, s);
 }
 
-// int8 pages with f32 scales (N, Hkv); dtype is that of q and out
+// int8 pages with f32 scales (N, Hkv); dtype is that of q and out. bf16 q
+// in the tensor-core kernel's shapes (tc_takes) takes its int8
+// instantiation; f32 q and other bf16 shapes the first template.
 extern "C" int paged_prefill_attention_quant(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* tables,
@@ -654,6 +683,10 @@ extern "C" int paged_prefill_attention_quant(
   cudaStream_t s = (cudaStream_t)stream;
   const float* ks = (const float*)k_scale;
   const float* vs = (const float*)v_scale;
+  if (dtype == DTYPE_BF16 && tc_takes(q, k_pages, v_pages, out, head_dim))
+    return launch_tc_dim<int8_t>(
+        q, k_pages, v_pages, ks, vs, tables, q_pos, out, batch, chunk,
+        num_pages, block_size, n_kv, group, head_dim, scale, s);
   if (dtype == DTYPE_BF16)
     return launch_group<__nv_bfloat16, int8_t>(
         q, k_pages, v_pages, ks, vs, tables, q_pos, out, batch, chunk,

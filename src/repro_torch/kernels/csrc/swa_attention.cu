@@ -6,13 +6,32 @@
 // Replaces (Pallas, TPU):
 //   swa_attention  <- src/repro/kernels/swa_attention.py:66
 //
-// Bound on the H100: operations for this kernel. Each (query, visible key)
-// pair costs 4 * D flops (score and weighted value); at Hymba-1.5B's shapes
-// (D 64, window 1024, S 2048) a query sees up to 1024 keys, some 380 flops
-// per byte of q, k, v and out: above even the bf16 tensor-core ridge (295),
-// and this kernel runs on the scalar f32 units.
+// Bound on the H100: operations. Each (query, visible key) pair costs
+// 4 * D flops (score and weighted value); at Hymba-1.5B's shapes (D 64,
+// window 1024, S 2048) a query sees up to 1024 keys, some 380 flops per
+// byte of q, k, v and out: above even the bf16 tensor-core ridge (295).
 //
-// Design: one thread block per (tile of 64 queries, head, batch row). The
+// bf16 with D a multiple of 16 up to 128 (swa_attention_tc_kernel): the
+// tensor-core tile loop of paged_prefill.cu's B4 on the dense MHA layout,
+// with a window bound on the key walk. One block of 4 warps per (tile of
+// 64 queries, head, batch row), 16 query rows per warp; the blocks with
+// the longest walks are numbered first. Q sits in registers as mma A
+// fragments loaded from global memory (row stride H * D). The block walks
+// the 64-key tiles from floor(max(0, q0 - window + 1) / 64) * 64 to its
+// last query (at most 17 tiles at a window of 1024): each tile's K and V
+// rows, contiguous D-element runs at stride H * D, go through a two-stage
+// ring of 16-byte cp.async.cg copies into rows padded to D + 8 bf16, keys
+// past S zero-filled. Each tile takes mma.cuh's three steps: S = Q K^T by
+// mma.sync m16n8k16 (bf16 in, f32 accumulators), the online softmax in
+// registers, O += P V with P split hi + lo in bf16. The mask is key <= i
+// && key > i - window && key < S; a tile that every row of the warp sees
+// whole skips it (most of the 17 tiles at Hymba-1.5B's shape). O is
+// divided by max(l, 1e-20); rows past S are not written. Shared memory is
+// 4 * 64 * (D + 8) * 2 bytes (36.9 KB at D = 64); registers, not shared
+// memory, bound the blocks per SM.
+//
+// f32, and bf16 outside those shapes (swa_attention_kernel): one thread
+// block per (tile of 64 queries, head, batch row). The
 // Pallas kernel's static grid visits every KV block and masks the ones
 // outside the window; here the block visits only the 64-key tiles that
 // overlap [q_start - window + 1, q_end], so its work is O(window). The
@@ -28,12 +47,11 @@
 // four keys at a time, again from float4 reads: about three float4 loads
 // per 16 FMAs, where scalar reads (the first version) needed one load per
 // two. The finaliser divides by max(l, 1e-20), as the Pallas kernel does.
-// Rows past S (a ragged last tile) are masked and not written.
-//
-// What the simple design leaves: scalar f32 FMAs from shared memory
-// instead of wgmma on bf16 tiles, synchronous staging (no TMA ring), and
+// Rows past S (a ragged last tile) are masked and not written. What it
+// leaves: scalar f32 FMAs from shared memory, synchronous staging, and
 // masked work on the diagonal and window-edge tiles.
 #include "common.cuh"
+#include "mma.cuh"
 
 constexpr int SWA_THREADS = 256;   // a 16 x 16 grid of threads
 constexpr int SWA_QT = 64;         // queries per block
@@ -281,6 +299,184 @@ static int launch_dims(const void* q, const void* k, const void* v,
   return launch<T, 2>(q, k, v, out, batch, S, H, D, window, scale, s);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core tile loop
+// ---------------------------------------------------------------------------
+
+constexpr int SWA_TC_THREADS = 128;   // 4 warps
+constexpr int SWA_TC_ROWS = 64;       // queries per block, 16 per warp
+constexpr int SWA_TC_KEYS = 64;       // keys per tile
+
+template <int D>
+constexpr size_t swa_tc_smem_bytes() {
+  return 4 * SWA_TC_KEYS * (D + 8) * sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(SWA_TC_THREADS, D <= 64 ? 4 : 2)
+    swa_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ out, int S, int H,
+                            int window, float scale_log2) {
+  constexpr int LD = D + 8;                 // shared row stride (bf16)
+  constexpr int TILE = SWA_TC_KEYS * LD;    // elements of one K or V tile
+  constexpr int KSTEPS = D / 16;            // k-steps of Q K^T
+  constexpr int DT = D / 8;                 // n-tiles of O
+  constexpr int CPR = D / 8;                // 16-byte chunks per K/V row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  // [stage][K, V][TILE]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * SWA_TC_ROWS;
+  const int h = blockIdx.y;
+  const int64_t bb = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int64_t row_stride = (int64_t)H * D;
+  const int64_t base = (bb * S * H + h) * (int64_t)D;   // (bb, 0, h, 0)
+  const int w_lo = q0 + warp * 16;          // the warp's rows w_lo .. + 15
+  const int row[2] = {w_lo + grp, w_lo + grp + 8};   // this lane's rows
+
+  // Q as A fragments: qa[kk] = rows (grp, grp + 8), dims kk * 16 + ...
+  uint32_t qa[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = x & 1, half = x >> 1;
+      qa[kk][x] = row[i] < S
+                      ? *reinterpret_cast<const uint32_t*>(
+                            q + base + row[i] * row_stride + kk * 16 +
+                            half * 8 + 2 * tig)
+                      : 0u;
+    }
+
+  const int q_last = min(q0 + SWA_TC_ROWS - 1, S - 1);
+  const int t_first = max(0, q0 - window + 1) / SWA_TC_KEYS * SWA_TC_KEYS;
+  const int n_tiles = (q_last - t_first) / SWA_TC_KEYS + 1;
+
+  // cp.async of the K and V rows of tile `tile` into ring stage `st`
+  auto issue = [&](int tile, int st) {
+    const int t0 = t_first + tile * SWA_TC_KEYS;
+    __nv_bfloat16* ks = kv_s + 2 * st * TILE;
+    __nv_bfloat16* vs = ks + TILE;
+#pragma unroll
+    for (int i0 = 0; i0 < SWA_TC_KEYS * CPR; i0 += SWA_TC_THREADS) {
+      const int i = i0 + tid, t = i / CPR, c = i % CPR;
+      const bool live = t0 + t < S;
+      const int64_t src = live ? base + (t0 + t) * row_stride + c * 8 : 0;
+      const int n = live ? 16 : 0;   // 0: zero-fill the chunk
+      cp_async_16(smem_u32(ks + t * LD + c * 8), k + src, n);
+      cp_async_16(smem_u32(vs + t * LD + c * 8), v + src, n);
+    }
+  };
+
+  float o[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) o[n][x] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  const int k_lane = k_lane_offset(lane, LD);
+  const int v_lane = v_lane_offset(lane, LD);
+
+  if (n_tiles > 0) {   // no tiles only for windows below 1
+    issue(0, 0);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, t0 = t_first + it * SWA_TC_KEYS;
+    // the other stage is free once every warp is past the previous
+    // iteration
+    __syncthreads();
+    if (it + 1 < n_tiles) issue(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // this thread's copies of tile `it` have landed
+    __syncthreads();      // and everyone's
+    const __nv_bfloat16* ks = kv_s + 2 * st * TILE;
+    const __nv_bfloat16* vs = ks + TILE;
+
+    float s[8][4];
+    tile_scores<D>(s, qa, ks, k_lane);
+    // every row of the warp sees every key of the tile: all keys at or
+    // before the warp's first row, after its last row's window start, and
+    // before S
+    const bool full = t0 + SWA_TC_KEYS - 1 <= w_lo &&
+                      t0 > w_lo + 15 - window && t0 + SWA_TC_KEYS <= S;
+    tile_softmax<DT>(s, m_r, l_r, o, scale_log2, full, [&](int n, int x) {
+      const int key = t0 + n * 8 + 2 * tig + (x & 1), i = row[x >> 1];
+      return key <= i && key > i - window && key < S;
+    });
+    tile_pv<D>(o, s, vs, v_lane);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-20f);
+    if (row[i] >= S) continue;
+    __nv_bfloat16* dst = out + base + row[i] * row_stride + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<uint32_t*>(dst + n * 8) =
+          pack_bf16(o[n][2 * i] / l, o[n][2 * i + 1] / l);
+  }
+}
+
+template <int D>
+static int launch_tc(const void* q, const void* k, const void* v, void* out,
+                     int64_t batch, int S, int H, int window, float scale,
+                     cudaStream_t s) {
+  constexpr size_t smem = swa_tc_smem_bytes<D>();
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        swa_attention_tc_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)((S + SWA_TC_ROWS - 1) / SWA_TC_ROWS),
+                  (unsigned)H, (unsigned)batch);
+  swa_attention_tc_kernel<D><<<grid, SWA_TC_THREADS, smem, s>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, H, window,
+      scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core kernel's shapes: D a multiple of 16 up to 128, q/k/v
+// and out 16-byte aligned (cp.async of whole 16-byte row chunks).
+static bool tc_takes(const void* q, const void* k, const void* v,
+                     const void* out, int D) {
+  return D % 16 == 0 && D <= 128 &&
+         ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) %
+                 16 == 0;
+}
+
+static int launch_tc_dim(const void* q, const void* k, const void* v,
+                         void* out, int64_t batch, int S, int H, int D,
+                         int window, float scale, cudaStream_t s) {
+#define SWA_TC_CASE(DIM)                                                    \
+  case DIM:                                                                 \
+    return launch_tc<DIM>(q, k, v, out, batch, S, H, window, scale, s);
+  switch (D) {
+    SWA_TC_CASE(16)
+    SWA_TC_CASE(32)
+    SWA_TC_CASE(48)
+    SWA_TC_CASE(64)
+    SWA_TC_CASE(80)
+    SWA_TC_CASE(96)
+    SWA_TC_CASE(112)
+    SWA_TC_CASE(128)
+  }
+#undef SWA_TC_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// bf16 in the tensor-core kernel's shapes (tc_takes) takes it; f32 and
+// other bf16 shapes the scalar template
 extern "C" int swa_attention(const void* q, const void* k, const void* v,
                              void* out, int64_t batch, int S, int H, int D,
                              int window, float scale, int dtype,
@@ -288,6 +484,8 @@ extern "C" int swa_attention(const void* q, const void* k, const void* v,
   if (batch <= 0 || S <= 0 || H <= 0) return 0;
   if (D < 1 || D > SWA_MAX_D) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DTYPE_BF16 && tc_takes(q, k, v, out, D))
+    return launch_tc_dim(q, k, v, out, batch, S, H, D, window, scale, s);
   if (dtype == DTYPE_BF16)
     return launch_dims<__nv_bfloat16>(q, k, v, out, batch, S, H, D, window,
                                       scale, s);

@@ -539,7 +539,16 @@ def paged_prefill_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
     float32 or bfloat16 at positions q_pos (B, C) int32 over k_pages/v_pages
     (N, bs, Hkv, D) int8 with scales (N, Hkv) float32 through block_tables
     (B, P) int32; q_pos = -1 rows give zeros. Returns (B, C, H, D) in q's
-    dtype."""
+    dtype.
+
+    The C entry picks the kernel by shape before the launch: bfloat16 q
+    with D a multiple of 16 up to 128, pools starting on a 16-byte
+    boundary and q / out on a 4-byte one go to the int8 instantiation of
+    the tensor-core kernel of ``paged_prefill_attention`` (int8 rows
+    converted to bf16 in shared memory, the scales folded into the scores
+    and the probabilities); float32 q, and bfloat16 q of other shapes,
+    go to the first, scalar kernel, which takes D and bs multiples of 4.
+    Neither is a fallback for the other: each shape has one kernel."""
     name = "paged_prefill_attention_quant"
     if _on_cpu(name, q, k_pages, v_pages, k_scale, v_scale, block_tables,
                q_pos):
@@ -620,7 +629,12 @@ def swa_attention(q, k, v, window: int, q_block: int = 128,
     (B, S, H, D) float32 or bfloat16 (callers repeat KV heads). Query i
     attends to keys j with ``i - window < j <= i``. As in the JAX wrapper,
     S must be a multiple of ``min(q_block, S)`` and ``min(kv_block, S)``;
-    the CUDA kernel tiles on its own. Returns (B, S, H, D) in q's dtype."""
+    the CUDA kernel tiles on its own. Returns (B, S, H, D) in q's dtype.
+
+    The C entry picks the kernel by shape before the launch: bfloat16 with
+    D a multiple of 16 and q, k, v and out on 16-byte boundaries goes to a
+    tensor-core kernel (mma.sync on 16 x 16 bf16 tiles); float32, and
+    bfloat16 of other shapes, to the scalar kernel."""
     name = "swa_attention"
     bsz, s, h, d = q.shape
     qb, kb = min(q_block, s), min(kv_block, s)

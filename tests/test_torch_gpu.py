@@ -7,8 +7,11 @@ Tolerances: exact for the write and copy kernels; for the attention
 kernels 3e-5 in float32 and, in bfloat16, atol 2e-3 with rtol 8e-3: kernel
 and plain version both accumulate in float32 and round once, so they may
 differ by one bfloat16 step of the output (2**-7 of its size at most).
-The bf16 prefill kernel (tensor cores, P split into two bf16 parts) is
-held at the same tolerance at the edges of its 64-row and 64-key tiles.
+The bf16 tensor-core kernels (P split into two bf16 parts) are held at
+the same tolerance at the edges of their 64-row and 64-key tiles: paged
+prefill over bf16 pools (B4) and over int8 pages (B10), and
+sliding-window attention (B15), whose window edges cut tiles too; bf16
+head dims outside those kernels take the scalar kernels of B10 and B15.
 Two cases run at Qwen2.5-14B's serve-pool size, where byte offsets pass
 2**31 and only 64-bit offset arithmetic gives the right blocks. The int8
 quantize and dequantize kernels are exact against their plain versions,
@@ -367,6 +370,86 @@ def test_paged_prefill_attention_quant(dev, dt, b, c, h, hkv, d, bs, p):
     assert got.dtype == q.dtype
     torch.testing.assert_close(got.float(), want.float(), **tol(dt))
     assert not got[torch.as_tensor(qpos < 0, device=dev)].any()
+
+
+# B10's tensor-core instantiation (bf16 q, int8 pages) at B4's tile edges
+# (see test_paged_prefill_attention_bf16_tiles), over int8 pools whose
+# scales spread 0.3x to 3x per (page, kv head)
+@pytest.mark.parametrize("b,c,h,hkv,d,bs,p,ends", [
+    (3, 7, 10, 2, 64, 16, 8, (63, -1, 100)),
+    (2, 16, 4, 4, 64, 16, 9, (64, 127)),
+    (2, 20, 16, 2, 128, 16, 10, (159, 64)),
+    (2, 12, 10, 2, 80, 8, 20, (127, 159)),
+    (2, 12, 10, 2, 128, 32, 5, (63, 159)),
+    (3, 8, 10, 2, 64, 16, 1, (15, 7, -1)),
+    (2, 32, 40, 8, 128, 16, 16, (255, 255)),
+])
+def test_paged_prefill_attention_quant_bf16_tiles(dev, b, c, h, hkv, d, bs,
+                                                  p, ends):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n = p * b + 2
+    q = _rand(gen, (b, c, h, d), "bf16", dev)
+    kq, ks = _int8_pool(gen, (n, bs, hkv, d), dev)
+    vq, vs = _int8_pool(gen, (n, bs, hkv, d), dev)
+    bt = torch.randint(0, n, (b, p), generator=gen, device=dev,
+                       dtype=torch.int32)
+    qpos = np.full((b, c), -1)
+    for i, e in enumerate(ends):
+        valid = min(c - i % 3, e + 1)     # some rows end in padding
+        qpos[i, :valid] = e - valid + 1 + np.arange(valid)
+    qp = _ints(qpos, dev)
+    got = ops.paged_prefill_attention_quant(q, kq, vq, ks, vs, bt, qp)
+    want = R.paged_prefill_attention_quant_ref(q, kq, vq, ks, vs, bt, qp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol("bf16"))
+    assert not got[torch.from_numpy(qpos < 0).to(dev)].any()
+
+
+# B15's tensor-core kernel (bf16, D a multiple of 16) at its edges: windows
+# under one 64-key tile, not a multiple of 64, exactly 64 and at least S;
+# D 16 / 32 / 64 / 128; S 96 (a ragged last query tile)
+@pytest.mark.parametrize("b,s,h,d,window", [
+    (2, 256, 3, 16, 40),
+    (2, 256, 3, 32, 100),
+    (1, 384, 2, 64, 64),
+    (1, 128, 4, 64, 1000),
+    (2, 96, 2, 128, 100),
+    (2, 96, 3, 32, 96),
+])
+def test_swa_attention_bf16_tiles(dev, b, s, h, d, window):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (_rand(gen, (b, s, h, d), "bf16", dev) for _ in "qkv")
+    got = ops.swa_attention(q, k, v, window)
+    want = R.swa_attention_ref(q, k, v, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol("bf16"))
+
+
+def test_bf16_head_dims_outside_the_tensor_cores_take_scalar_kernels(dev):
+    """bf16 B10 at D 24 and 72 and bf16 B15 at D 20 and 72 (no multiple of
+    16) launch the scalar kernels and match their plain versions, where
+    bf16 B4 refuses D 72 (test_paged_prefill_attention_bf16_head_dim_
+    outside_tiles_raises)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    ops.reset_launches()
+    for d in (24, 72):
+        q = _rand(gen, (2, 6, 8, d), "bf16", dev)
+        kq, ks = _int8_pool(gen, (9, 8, 2, d), dev)
+        vq, vs = _int8_pool(gen, (9, 8, 2, d), dev)
+        bt = _ints([[0, 3, 5, 7], [1, 2, 4, 6]], dev)
+        qp = _ints([[20, 21, 22, 23, -1, -1], [0, 1, 2, 3, 4, 5]], dev)
+        got = ops.paged_prefill_attention_quant(q, kq, vq, ks, vs, bt, qp)
+        want = R.paged_prefill_attention_quant_ref(q, kq, vq, ks, vs, bt, qp)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol("bf16"))
+    for d in (20, 72):
+        q, k, v = (_rand(gen, (1, 128, 2, d), "bf16", dev) for _ in "qkv")
+        got = ops.swa_attention(q, k, v, 50)
+        want = R.swa_attention_ref(q, k, v, 50)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol("bf16"))
+    assert ops.launches["paged_prefill_attention_quant"] == 2
+    assert ops.launches["swa_attention"] == 2
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

@@ -23,10 +23,15 @@ token-sequential recurrence at 2e-3 (``test_kernels.py``'s tolerance: the
 chunked and sequential sums run in different orders); sliding-window
 attention at the attention tolerances above.
 
-The bf16 paged-prefill CUDA kernel cannot run here, so its arithmetic is
-emulated in plain torch (``emulate_prefill_tc``) and held to the Pallas
-kernel at the bf16 tolerance above and, at the main path's shape, to the
-port's plain version within ``chip_smoke.py``'s bf16 tolerance (2e-3).
+The bf16 tensor-core CUDA kernels cannot run here, so their arithmetic
+is emulated in plain torch: paged prefill over bf16 pools and over int8
+pages (``emulate_prefill_tc``) and sliding-window attention
+(``emulate_swa_tc``). Each emulation is held to the Pallas kernel and the
+JAX oracle at the bf16 tolerance above and, at the main path's shape (or
+Hymba-1.5B's widths), to the port's plain version within
+``chip_smoke.py``'s bf16 tolerance for that kernel (2e-3 for paged
+prefill; one bf16 step, atol 2e-3 and rtol 8e-3, for sliding-window
+attention).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -122,16 +127,37 @@ def test_paged_prefill_attention(dt, b, c, h, hkv, d, bs, p):
 # f32 from bf16 inputs, online softmax with the running max m in raw score
 # units and p = 2^(s c - m c), c = log2(e) / sqrt(D), masked probabilities
 # set to 0, P split into bf16 hi and lo parts, f32 accumulation, one
-# division by max(l, 1e-20) and one bf16 rounding.
+# division by max(l, 1e-20) and one bf16 rounding. With scales (int8
+# pages, B10): K and V are the pages' integers (exact in bf16), S is
+# multiplied by the key's k_scale before the mask, l sums the unscaled p
+# and P V takes p * v_scale[key] before the hi/lo split.
 NEG_INF = -1e30
 
 
-def emulate_prefill_tc(q, k_pages, v_pages, tables, q_pos):
+def _online_step(s, keep, m, l, o, vt, scale, vsc=None):
+    """One 64-key tile of the tensor-core kernels' loop over scores s
+    (heads, rows, keys) with visibility keep: the new (m, l, o)."""
+    s = torch.where(keep, s, torch.tensor(NEG_INF))
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp2((m - m_new) * scale)
+    p = torch.where(keep, torch.exp2(
+        s * scale - (m_new * scale)[..., None]), torch.zeros(()))
+    l = l * alpha + p.sum(-1)
+    if vsc is not None:
+        p = p * vsc
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    o = o * alpha[..., None] + torch.einsum("krt,tkd->krd", hi, vt) \
+        + torch.einsum("krt,tkd->krd", lo, vt)
+    return m_new, l, o
+
+
+def emulate_prefill_tc(q, k_pages, v_pages, tables, q_pos, k_scale=None,
+                       v_scale=None):
     b, c, h, d = q.shape
     _, bs, hkv, _ = k_pages.shape
     g, rows = h // hkv, c * (h // hkv)
     scale = torch.tensor(1.4426950408889634 / np.sqrt(d), dtype=torch.float32)
-    neg = torch.tensor(NEG_INF)
     qr = q.float().reshape(b, c, hkv, g, d).permute(0, 2, 1, 3, 4) \
         .reshape(b, hkv, rows, d)
     qpr = q_pos.long()[:, :, None].expand(b, c, g).reshape(b, rows)
@@ -152,18 +178,11 @@ def emulate_prefill_tc(q, k_pages, v_pages, tables, q_pos):
                 vt = v_pages[pg, keys % bs].float() * ok[:, None, None]
                 keep = (keys[None, :] <= qp[:, None]) & ok[None, :]
                 s = torch.einsum("krd,tkd->krt", qr[bi, :, r], kt)
-                s = torch.where(keep, s, neg)
-                m_new = torch.maximum(m, s.amax(-1))
-                alpha = torch.exp2((m - m_new) * scale)
-                p = torch.where(keep, torch.exp2(
-                    s * scale - (m_new * scale)[..., None]), torch.zeros(()))
-                l = l * alpha + p.sum(-1)
-                hi = p.to(torch.bfloat16).float()
-                lo = (p - hi).to(torch.bfloat16).float()
-                o = o * alpha[..., None] \
-                    + torch.einsum("krt,tkd->krd", hi, vt) \
-                    + torch.einsum("krt,tkd->krd", lo, vt)
-                m = m_new
+                vsc = None
+                if k_scale is not None:     # (hkv, 1, keys), 0 past n_tok
+                    s = s * (k_scale[pg] * ok[:, None]).T[:, None, :]
+                    vsc = (v_scale[pg] * ok[:, None]).T[:, None, :]
+                m, l, o = _online_step(s, keep, m, l, o, vt, scale, vsc)
             out[bi, :, r] = o / torch.clamp(l, min=1e-20)[..., None]
     return out.reshape(b, hkv, c, g, d).permute(0, 2, 1, 3, 4) \
         .reshape(b, c, h, d).to(q.dtype)
@@ -224,6 +243,147 @@ def test_prefill_tc_emulation_at_main_path_shape(p):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
                                rtol=2e-3)
     assert not got[-1].any()
+
+
+def _spread_int8_pool(gen, shape):
+    """int8 pages and (N, Hkv) float32 scales quantized by the plain
+    version from normal pages whose magnitude differs by page and kv head
+    (0.3x to 3x), as ``test_torch_gpu.py``'s int8 pools."""
+    n, _, hkv, _ = shape
+    mag = 10.0 ** (torch.rand((n, 1, hkv, 1), generator=gen) - 0.5)
+    return R.quantize_block_ref(torch.randn(shape, generator=gen) * mag)
+
+
+@pytest.mark.parametrize("b,c,h,hkv,d,bs,p", [   # test_quant_kernels.py
+    (1, 4, 4, 4, 32, 8, 3),
+    (3, 8, 8, 2, 64, 16, 5),
+    (2, 5, 5, 5, 16, 8, 4),
+])
+def test_prefill_tc_int8_emulation_matches_pallas(b, c, h, hkv, d, bs, p):
+    """The emulated bf16 kernel over int8 pages (B10) against the Pallas
+    kernel (interpret mode) and the JAX oracle, at the bf16 attention
+    tolerance of this file."""
+    rng = np.random.default_rng(8)
+    n = p * b + 4
+    q, tq = pair(rng.standard_normal((b, c, h, d)), "bf16")
+    _, (kq, tkq), (ks, tks) = int8_pool(rng, (n, bs, hkv, d))
+    _, (vq, tvq), (vs, tvs) = int8_pool(rng, (n, bs, hkv, d))
+    bt, tbt = ints(rng.integers(0, n, (b, p)))
+    qpos = rng.integers(-1, p * bs, (b, c)).astype(np.int32)
+    qp, tqp = ints(qpos)
+    got = emulate_prefill_tc(tq, tkq, tvq, tbt, tqp, tks, tvs)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        npf(got),
+        npf(jops.paged_prefill_attention_quant(q, kq, vq, ks, vs, bt, qp)),
+        **tol("bf16"))
+    np.testing.assert_allclose(
+        npf(got),
+        npf(JR.paged_prefill_attention_quant_ref(q, kq, vq, ks, vs, bt, qp)),
+        **tol("bf16"))
+    assert not npf(got)[qpos < 0].any()
+
+
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("p", [64, 16])
+def test_prefill_tc_int8_emulation_at_main_path_shape(p, spread):
+    """At the main path's shape (as test_prefill_tc_emulation_at_main_path_
+    shape), the emulated int8 instantiation against the plain version,
+    which dequantizes in f32 first: the scales folded into S and P in f32
+    cost no bf16 rounding. Over unit-normal pages quantized per (page, kv
+    head), chip_smoke.py's data, it stays within chip_smoke.py's bf16
+    tolerance (atol = rtol = 2e-3). With magnitudes spread 0.3x to 3x per
+    (page, kv head), as test_torch_gpu.py's int8 pools, outputs reach 2-4,
+    where one bf16 step of the output is 2**-7 of it: that case takes the
+    card tests' one-step tolerance (atol 2e-3, rtol 8e-3)."""
+    b, c, h, hkv, d, bs = 8, 32, 40, 8, 128, 16
+    gen = torch.Generator().manual_seed(0)
+    n = b * p + 1
+    if spread:
+        (kq, ks), (vq, vs) = (_spread_int8_pool(gen, (n, bs, hkv, d))
+                              for _ in "kv")
+    else:
+        (kq, ks), (vq, vs) = (R.quantize_block_ref(torch.randn(
+            n, bs, hkv, d, generator=gen).bfloat16()) for _ in "kv")
+    q = torch.randn(b, c, h, d, generator=gen).bfloat16()
+    rng = np.random.default_rng(0)
+    tables = torch.from_numpy(
+        rng.permutation(b * p).reshape(b, p).astype(np.int32))
+    qpos = np.full((b, c), -1, np.int32)
+    qpos[:b - 1] = p * bs - c + np.arange(c)
+    qp = torch.from_numpy(qpos)
+    got = emulate_prefill_tc(q, kq, vq, tables, qp, ks, vs)
+    want = R.paged_prefill_attention_quant_ref(q, kq, vq, ks, vs, tables,
+                                               qp)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=8e-3 if spread else 2e-3)
+    assert not got[-1].any()
+
+
+# The bf16 sliding-window kernel's arithmetic (csrc/swa_attention.cu,
+# swa_attention_tc_kernel), emulated in plain torch: query tiles of 64,
+# each walking the 64-key tiles from floor(max(0, q0 - window + 1) / 64) *
+# 64 to its last query, keys past S zero, the mask key <= i, key > i -
+# window, key < S, and the online step of the paged-prefill emulation
+# (all heads at once).
+def emulate_swa_tc(q, k, v, window):
+    b, s, h, d = q.shape
+    window = min(int(window), s)
+    scale = torch.tensor(1.4426950408889634 / np.sqrt(d), dtype=torch.float32)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    out = torch.zeros(b, h, s, d)
+    for bi in range(b):
+        for q0 in range(0, s, 64):
+            rows = torch.arange(q0, min(q0 + 64, s))
+            m = torch.full((h, rows.numel()), NEG_INF)
+            l = torch.zeros(h, rows.numel())
+            o = torch.zeros(h, rows.numel(), d)
+            t_first = max(0, q0 - window + 1) // 64 * 64
+            for t0 in range(t_first, int(rows[-1]) + 1, 64):
+                keys = torch.arange(t0, t0 + 64)
+                ok = keys < s
+                idx = torch.where(ok, keys, 0)
+                kt = kf[bi, idx] * ok[:, None, None]
+                vt = vf[bi, idx] * ok[:, None, None]
+                keep = (keys[None, :] <= rows[:, None]) \
+                    & (keys[None, :] > rows[:, None] - window) & ok[None, :]
+                sc = torch.einsum("rkd,tkd->krt", qf[bi, rows], kt)
+                m, l, o = _online_step(sc, keep, m, l, o, vt, scale)
+            out[bi, :, q0:q0 + rows.numel()] = \
+                o / torch.clamp(l, min=1e-20)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("s,w,qb", [(128, 32, 64), (256, 96, 64),
+                                    (128, 128, 128)])   # test_kernels.py
+def test_swa_tc_emulation_matches_pallas(s, w, qb):
+    """The emulated bf16 sliding-window kernel against the Pallas kernel
+    (interpret mode) and the JAX oracle, at the bf16 attention tolerance
+    of this file."""
+    rng = np.random.default_rng(11)
+    (q, tq), (k, tk), (v, tv) = (pair(rng.standard_normal((2, s, 3, 32)),
+                                      "bf16") for _ in "qkv")
+    got = emulate_swa_tc(tq, tk, tv, w)
+    assert got.dtype == torch.bfloat16
+    for want in (jops.swa_attention(q, k, v, w, q_block=qb, kv_block=qb),
+                 JR.swa_attention_ref(q, k, v, w)):
+        np.testing.assert_allclose(npf(got), npf(want), **tol("bf16"))
+
+
+def test_swa_tc_emulation_at_hymba_widths():
+    """At Hymba-1.5B's widths (H 25, D 64) with B 1, S 512 and a window of
+    192 (three key tiles, not a multiple of 64), the emulated kernel stays
+    within one bf16 step of the plain version (chip_smoke.py's
+    TOL_ONE_STEP: atol 2e-3, rtol 8e-3). S is cut from Hymba's 2048 only
+    because the plain version holds (B, H, S, S) f32 scores; chip_smoke.py
+    checks the full shape on the card."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 512, 25, 64, generator=gen).bfloat16()
+               for _ in "qkv")
+    got = emulate_swa_tc(q, k, v, 192)
+    want = R.swa_attention_ref(q, k, v, 192)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=8e-3)
 
 
 def test_lib_path_hashes_every_header(tmp_path, monkeypatch):

@@ -3,14 +3,14 @@
 
     python3 tools/prefill_breakdown.py [--against DIR ...]
 
-Builds variants of ``src/repro_torch/kernels/csrc/paged_prefill.cu`` that
-each drop one part of the tensor-core tile loop, and times them with
-``chip_smoke.py``'s CUDA-graph timer at the main path's shape (Qwen2.5-14B:
-B 8, C 32, H 40, Hkv 8, D 128, bs 16, the last chunk of a 1024-token
-context, the last row padded), at 256-token contexts and at B 4 (96
-blocks, at most one per SM):
+Builds variants of ``src/repro_torch/kernels/csrc/paged_prefill.cu`` (with
+its header ``mma.cuh``) that each drop one part of the tensor-core tile
+loop, and times them with ``chip_smoke.py``'s CUDA-graph timer at the main
+path's shape (Qwen2.5-14B: B 8, C 32, H 40, Hkv 8, D 128, bs 16, the last
+chunk of a 1024-token context, the last row padded), at 256-token contexts
+and at B 4 (96 blocks, at most one per SM):
 
-- ``base``: the file as it is;
+- ``base``: the files as they are;
 - ``no_lo``: without the lo half of the hi/lo P V product;
 - ``no_load``: without the K/V copies after the first tile (the block
   computes on stale tiles);
@@ -19,17 +19,22 @@ blocks, at most one per SM):
 
 Only ``base`` computes the right answer; its error against the plain
 version is printed, the others' are not meaningful. ``--against DIR``
-also builds ``DIR/paged_prefill.cu`` (for example the ``csrc`` of a parent
-commit unpacked with ``git archive``) and times it and ``base`` in turns
-(other, base, base, other), bf16 B4, f32 B4 and bf16 B10 (int8 pages) each,
-so two versions compare inside one run on one card. Exits 1 without a
-CUDA device.
+also builds ``DIR/paged_prefill.cu`` and ``DIR/swa_attention.cu`` (for
+example the ``csrc`` of a parent commit unpacked with ``git archive``) and
+times them and ``base`` in turns (other, base, base, other): bf16 B4, f32
+B4 and bf16 B10 (int8 pages) at the main path's shape, and bf16 B15
+(sliding-window attention) at Hymba-1.5B's prefill shape, q/k/v (4, 2048,
+25, 64) with a 1024-token window, so two versions compare inside one run
+on one card. Each build prints the ptxas registers, spills and static
+shared memory of its tensor-core kernels (D 128 for paged prefill, D 64
+for sliding-window attention). Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -41,32 +46,41 @@ sys.path.insert(0, str(ROOT))
 OUT = ROOT / "build" / "prefill_breakdown"
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 
-# the code of paged_prefill.cu that the variants remove
-_LO_MMA = """        mma_bf16_16816(o[2 * dp], pl, vb[0], vb[1]);
-        mma_bf16_16816(o[2 * dp + 1], pl, vb[2], vb[3]);
+# the code that the variants remove: the lo MMAs of P V (mma.cuh), the
+# next tile's copies and the tile's compute (paged_prefill.cu)
+_LO_MMA = """      mma_bf16_16816(o[2 * dp], pl, vb[0], vb[1]);
+      mma_bf16_16816(o[2 * dp + 1], pl, vb[2], vb[3]);
 """
 _NEXT_TILE = "    if (it + 1 < n_tiles) issue(st ^ 1);\n"
-_COMPUTE_FROM = "    const __nv_bfloat16* ks = kv_s + 2 * st * TILE;\n"
+_COMPUTE_FROM = ("    const __nv_bfloat16* ks = kv_s + (QUANT ? 0 : 2 * st * "
+                 "TILE);\n")
 _COMPUTE_TO = ("\n#pragma unroll\n  for (int i = 0; i < 2; ++i) {\n"
                "    float l = l_r[i];")
+# the tensor-core kernels whose ptxas report each build prints
+_TC_ENTRY = re.compile(r"Compiling entry function '(_Z\w*(?:"
+                       r"paged_prefill_tc_kernelI\w*Li128E|"
+                       r"swa_attention_tc_kernelILi64E)\w*)'")
 
 
-def variants(src: str) -> dict:
-    """The source of every variant, from the source of ``base``."""
-    for part in (_LO_MMA, _NEXT_TILE, _COMPUTE_FROM, _COMPUTE_TO):
-        if part not in src:
-            raise SystemExit("prefill_breakdown: paged_prefill.cu no longer "
-                             "has the code a variant removes:\n" + part)
+def variants(src: str, hdr: str) -> dict:
+    """``{variant: (paged_prefill.cu, mma.cuh)}`` from the sources of
+    ``base``."""
+    for text, part in ((hdr, _LO_MMA), (src, _NEXT_TILE),
+                       (src, _COMPUTE_FROM), (src, _COMPUTE_TO)):
+        if part not in text:
+            raise SystemExit("prefill_breakdown: paged_prefill.cu / mma.cuh "
+                             "no longer have the code a variant removes:\n"
+                             + part)
     a, b = src.index(_COMPUTE_FROM), src.index(_COMPUTE_TO)
-    return {"base": src, "no_lo": src.replace(_LO_MMA, ""),
-            "no_load": src.replace(_NEXT_TILE, ""),
-            "no_compute": src[:a] + "    (void)t0;\n  }\n" + src[b:]}
+    return {"base": (src, hdr), "no_lo": (src, hdr.replace(_LO_MMA, "")),
+            "no_load": (src.replace(_NEXT_TILE, ""), hdr),
+            "no_compute": (src[:a] + "    (void)t0;\n  }\n" + src[b:], hdr)}
 
 
 def build_all(sources: dict) -> dict:
-    """Compile every ``{name: path to .cu}`` in parallel; returns the
-    loaded libraries and prints each tensor-core kernel's D = 128
-    register and spill line."""
+    """Compile every ``{name: path to .cu}`` in parallel (headers next to
+    the source first, then ``csrc/``); returns the loaded libraries and
+    prints the ptxas report of each tensor-core kernel."""
     from repro_torch.kernels import build
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -82,8 +96,9 @@ def build_all(sources: dict) -> dict:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and "tc_kernelILi128" in line:
-                print(f"  {name}: {lines[i + 2].strip()} | "
+            m = _TC_ENTRY.search(line)
+            if m:
+                print(f"  {name}: {m.group(1)}: {lines[i + 2].strip()} | "
                       f"{lines[i + 3].strip()}", flush=True)
         libs[name] = ctypes.CDLL(str(OUT / f"{name}.so"))
     return libs
@@ -113,6 +128,24 @@ def case(b: int, p: int, dt):
                 kq=R.quantize_block_ref(kp), vq=R.quantize_block_ref(vp))
 
 
+def _bind(lib, name: str):
+    from repro_torch.kernels import ops
+    fn = getattr(lib, name)
+    fn.argtypes = ops._SIGNATURES[name][1]       # the stream included
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _checked(fn, name: str, args):
+    import torch
+
+    def call():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: cudaError {rc}")
+    return call
+
+
 def caller(lib, c: dict, kind: str):
     """A closure launching ``kind`` (``b4`` or ``b10``) from ``lib`` on the
     inputs ``c``, and the output it writes."""
@@ -126,27 +159,47 @@ def caller(lib, c: dict, kind: str):
     code = 1 if q.dtype == torch.bfloat16 else 0
     name = ("paged_prefill_attention" if kind == "b4"
             else "paged_prefill_attention_quant")
-    fn = getattr(lib, name)
-    fn.argtypes = ops._SIGNATURES[name][1]       # the stream included
-    fn.restype = ctypes.c_int
     pools = ([c["kp"].data_ptr(), c["vp"].data_ptr()] if kind == "b4" else
              [c["kq"][0].data_ptr(), c["vq"][0].data_ptr(),
               c["kq"][1].data_ptr(), c["vq"][1].data_ptr()])
     args = (q.data_ptr(), *pools, tables.data_ptr(), qp.data_ptr(),
             out.data_ptr(), b, ch, tables.shape[1], BS, HKV, h // HKV, d,
             ops.PREFILL_Q_TILE, 1.0 / math.sqrt(d), code)
+    return _checked(_bind(lib, name), name, args), out
 
-    def call():
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{name}: cudaError {rc}")
-    return call, out
+
+def swa_case():
+    """bf16 q, k, v of Hymba-1.5B's prefill after the head repeat, as the
+    families phase of chip_smoke.py calls B15, and its window."""
+    import torch
+
+    from chip_smoke import FAM_B, FAM_S
+    from repro_torch.configs.base import get_config
+    cfg = get_config("hymba_1_5b")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn((FAM_B, FAM_S, cfg.num_heads, cfg.head_dim),
+                           generator=gen, device="cuda").bfloat16()
+               for _ in "qkv")
+    return q, k, v, cfg.sliding_window
+
+
+def swa_caller(lib, q, k, v, window: int):
+    """A closure launching B15 from ``lib`` on bf16 q, k, v, and the
+    output it writes."""
+    import torch
+    b, s, h, d = q.shape
+    out = torch.empty_like(q)
+    name = "swa_attention"
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            h, d, min(window, s), 1.0 / math.sqrt(d), 1)
+    return _checked(_bind(lib, name), name, args), out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", nargs="*", default=[],
-                    help="directories holding another paged_prefill.cu")
+                    help="directories holding another paged_prefill.cu and "
+                         "swa_attention.cu")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -156,15 +209,20 @@ def main() -> int:
     from repro_torch.kernels import ref as R
 
     print(f"[device] {smi()}", flush=True)
-    OUT.mkdir(parents=True, exist_ok=True)
     sources = {}
-    for name, text in variants((CSRC / "paged_prefill.cu").read_text()) \
-            .items():
-        sources[name] = OUT / f"{name}.cu"
-        sources[name].write_text(text)
+    for name, (cu, hdr) in variants(
+            (CSRC / "paged_prefill.cu").read_text(),
+            (CSRC / "mma.cuh").read_text()).items():
+        (OUT / name).mkdir(parents=True, exist_ok=True)
+        (OUT / name / "mma.cuh").write_text(hdr)
+        sources[name] = OUT / name / "paged_prefill.cu"
+        sources[name].write_text(cu)
     others = [f"other{i}" for i in range(len(args.against))]
+    if others:
+        sources["swa_base"] = CSRC / "swa_attention.cu"
     for name, d in zip(others, args.against):
         sources[name] = Path(d).resolve() / "paged_prefill.cu"
+        sources[f"swa_{name}"] = Path(d).resolve() / "swa_attention.cu"
     libs = build_all(sources)
 
     bf16 = torch.bfloat16
@@ -181,19 +239,34 @@ def main() -> int:
             print(f"  B {b}, {p} pages, bf16 B4 {name:10s} {ms:.4f} ms"
                   + (f"  max abs err {err:.3g}" if name == "base" else ""),
                   flush=True)
+    if others:
+        sq, sk, sv, window = swa_case()
+        swa_want = R.swa_attention_ref(sq, sk, sv, window)
     for other, d in zip(others, args.against):
         print(f"[against] {d}: turns {other}, base, base, {other}",
               flush=True)
         for dt, kind in ((bf16, "b4"), (torch.float32, "b4"),
-                         (bf16, "b10")):
-            c = case(8, P, dt)
-            times = []
-            for name in (other, "base", "base", other):
-                call, _ = caller(libs[name], c, kind)
-                times.append(graph_ms(call))
+                         (bf16, "b10"), (bf16, "b15")):
+            if kind == "b15":
+                lib = {other: libs[f"swa_{other}"], "base": libs["swa_base"]}
+                calls = {n: swa_caller(lib[n], sq, sk, sv, window)
+                         for n in (other, "base")}
+            else:
+                c = case(8, P, dt)
+                calls = {n: caller(libs[n], c, kind)
+                         for n in (other, "base")}
+            times = [graph_ms(calls[n][0])
+                     for n in (other, "base", "base", other)]
             label = f"{'bf16' if dt == bf16 else 'f32'} {kind.upper()}"
-            print(f"  {label}: {other} {times[0]:.4f} / {times[3]:.4f} ms, "
-                  f"base {times[1]:.4f} / {times[2]:.4f} ms", flush=True)
+            line = (f"  {label}: {other} {times[0]:.4f} / {times[3]:.4f} ms, "
+                    f"base {times[1]:.4f} / {times[2]:.4f} ms")
+            if kind == "b15":
+                torch.cuda.synchronize()
+                errs = [float((calls[n][1].float() - swa_want.float())
+                              .abs().max()) for n in (other, "base")]
+                line += (f"; max abs err {other} {errs[0]:.3g}, base "
+                         f"{errs[1]:.3g}")
+            print(line, flush=True)
     return 0
 
 

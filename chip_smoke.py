@@ -11,8 +11,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 2. build: every CUDA kernel of the serving path, from ``src/repro_torch/
    kernels/csrc`` with nvcc (all sources in parallel), and nvcc's ptxas
    register/spill report; the registers, spill bytes and static shared
-   memory of the bf16 tensor-core kernels (B4 and B10 at D 128, B15 at
-   D 64) also go into the results;
+   memory of the bf16 tensor-core kernels (B2, B4, B9 and B10 at D 128,
+   B15 at D 64) also go into the results;
 3. kernels: each kernel at the serving path's shapes for Qwen2.5-14B
    (bf16, and float32 for correctness), held against its plain PyTorch
    version (exact for writes, copies and the int8 quantize / dequantize
@@ -27,9 +27,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    tables and lengths over those pools quantized on the card (bf16 B10
    runs the int8 instantiation of B4's tensor-core kernel), and their
    difference from the float kernels on the same inputs (the int8 error)
-   is printed, ungated. B4 is held and timed a second time at the serve
-   phases' own contexts (variant ``ctx256``: 256-token contexts through
-   16-page tables), and B14 at Mamba2's shapes is also compared, with its
+   is printed, ungated; bf16 B2 and B9 run the split-context tensor-core
+   decode kernel, and their padded row must come out as exact zeros. B2
+   and B4 are held and timed a second time at the serve phases' own
+   contexts (variant ``ctx256``: 256-token contexts through 16-page
+   tables), and B14 at Mamba2's shapes is also compared, with its
    plain version, against the plain version run in float64 on the card
    (both errors printed, ungated);
 4. serve fp16: four deep_research apps through the tokencake engine with
@@ -182,6 +184,10 @@ TC_KERNELS = {
         "paged_prefill", r"paged_prefill_tc_kernelIaLi128E"),
     "swa_attention_tc_kernel<64> (B15)": (
         "swa_attention", r"swa_attention_tc_kernelILi64E"),
+    "paged_decode_tc_kernel<bf16, 128> (B2)": (
+        "paged_attention", r"paged_decode_tc_kernelI13__nv_bfloat16Li128E"),
+    "paged_decode_tc_kernel<int8_t, 128> (B9)": (
+        "paged_attention", r"paged_decode_tc_kernelIaLi128E"),
 }
 
 
@@ -332,14 +338,44 @@ def kernel_cases(dt: str):
         .contiguous()
     mask_d = (torch.arange(P * BS, device=dev)[None, :]
               < cl.long()[:, None])[:, None, None, :]
+    def splits(p, quant):
+        """The split count of the bf16 decode kernel for p-page tables."""
+        return lambda: ops.decode_splits(torch.cuda.current_device(), B, p,
+                                         BS, HKV, D, quant)
+
     cases.append(dict(
-        name="paged_attention", kind="attn", targets=(),
+        name="paged_attention", kind="attn", targets=(), zero_rows=[B - 1],
+        splits=splits(P, False),
         kernel=lambda: ops.paged_attention(q, kp, vp, tables, cl),
         plain=lambda: R.paged_attention_ref(q, kp, vp, tables, cl),
         library=sdpa(q[:, :, None], kd, vd, mask_d),
         library_call="scaled_dot_product_attention over pre-gathered K/V",
         nbytes=2 * B * H * D * es + 2 * ctx * row + 4 * (B * P + B),
         flops=4.0 * H * D * ctx))
+
+    # B2 at the serve phases' own contexts: 256 tokens through a 16-page
+    # table, the last row padded
+    p16 = CTX_SHORT // BS
+    tables16 = ints(perm[:, :p16])
+    lens16 = np.full(B, CTX_SHORT)
+    lens16[-1] = 0
+    cl16 = ints(lens16)
+    ctx16 = int(lens16.sum())
+    kd16, vd16 = (x[tables16.long()].reshape(B, CTX_SHORT, HKV, D)
+                  .transpose(1, 2).contiguous() for x in (kp, vp))
+    mask16_d = (torch.arange(CTX_SHORT, device=dev)[None, :]
+                < cl16.long()[:, None])[:, None, None, :]
+    cases.append(dict(
+        name="paged_attention", variant="ctx256", kind="attn", targets=(),
+        zero_rows=[B - 1], splits=splits(p16, False),
+        shape=f"q ({B}, {H}, {D}), {p16}-page tables, {CTX_SHORT}-token "
+              f"contexts",
+        kernel=lambda: ops.paged_attention(q, kp, vp, tables16, cl16),
+        plain=lambda: R.paged_attention_ref(q, kp, vp, tables16, cl16),
+        library=sdpa(q[:, :, None], kd16, vd16, mask16_d),
+        library_call="scaled_dot_product_attention over pre-gathered K/V",
+        nbytes=2 * B * H * D * es + 2 * ctx16 * row + 4 * (B * p16 + B),
+        flops=4.0 * H * D * ctx16))
 
     # B3 kv_chunk_write: row i's 32-token window starts at offset i of its
     # first page and spills into the next two; the last row is padding
@@ -387,16 +423,12 @@ def kernel_cases(dt: str):
         flops=4.0 * H * D * int((qpos[live_q] + 1).sum())))
 
     # B4 at the serve phase's own contexts (prompts cut to 256 tokens): the
-    # last 32-token chunk of a 256-token context through a 16-page table,
-    # the last row padding
-    p16 = CTX_SHORT // BS
-    tables16 = ints(perm[:, :p16])
+    # last 32-token chunk of a 256-token context through B2's 16-page
+    # tables, the last row padding
     qpos16 = np.full((B, C), -1)
     qpos16[:B - 1] = CTX_SHORT - C + np.arange(C)
     qp16 = ints(qpos16)
     live16 = qpos16 >= 0
-    kd16, vd16 = (x[tables16.long()].reshape(B, CTX_SHORT, HKV, D)
-                  .transpose(1, 2).contiguous() for x in (kp, vp))
     mask16 = (torch.arange(CTX_SHORT, device=dev)[None, None, :]
               <= qp16.long()[:, :, None])[:, None]
     cases.append(dict(
@@ -492,6 +524,7 @@ def kernel_cases(dt: str):
     n_pages = int(np.ceil(lens / BS).sum())
     cases.append(dict(
         name="paged_attention_quant", kind="attn", targets=(),
+        zero_rows=[B - 1], splits=splits(P, True),
         kernel=lambda: ops.paged_attention_quant(q, kq, vq, ksc, vsc, tables,
                                                  cl),
         plain=lambda: R.paged_attention_quant_ref(q, kq, vq, ksc, vsc,
@@ -642,6 +675,8 @@ def check_case(case: dict, dt: str) -> float:
             assert torch.equal(got, want), case["name"]
         torch.testing.assert_close(got.float(), want.float(),
                                    **case.get("tol", TOL[dt]))
+        for r in case.get("zero_rows", ()):
+            assert not got[r].any(), f"{case['name']}: padded row {r}"
         return float((got.float() - want.float()).abs().max())
     targets = case["targets"]
     snap = [t.clone() for t in targets]
@@ -701,6 +736,8 @@ def kernel_phase():
                       f"difference {d:.4g} (no gate)", flush=True)
             if dt != "bf16":
                 continue
+            if "splits" in case:        # runs of the split-context kernel
+                row["splits"] = case["splits"]()
             lib = case["library"]
             row.update(
                 ms=graph_ms(case["kernel"]), eager_ms=cuda_ms(case["kernel"]),
@@ -719,7 +756,8 @@ def kernel_phase():
                   f"{row['eager_ms']:.4f}  plain {row['plain_ms']:.4f}  "
                   f"library {libs}"
                   f"  bound {row['bound_ms']:.4f} ({row['bound_by']})  "
-                  f"err bf16 {err:.3g} f32 {row['max_abs_err_f32']:.3g}",
+                  f"err bf16 {err:.3g} f32 {row['max_abs_err_f32']:.3g}"
+                  + (f"  splits {row['splits']}" if "splits" in row else ""),
                   flush=True)
     return rows
 
@@ -1229,7 +1267,7 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             library_call=r["library_call"]))
-        for extra in ("shape", "hymba", "ctx256", "vs_f64_f32",
+        for extra in ("shape", "hymba", "ctx256", "splits", "vs_f64_f32",
                       "vs_f64_bf16"):
             if extra in r:
                 kernels[-1][extra] = r[extra]

@@ -6,10 +6,11 @@ copies, the Mamba2 SSD scan and sliding-window prefill attention.
 Each wrapper dispatches on the device of its tensors. On the CPU it runs
 the plain PyTorch version from ``ref``; on a CUDA tensor it checks device,
 dtype (float32 or bfloat16 pools and queries; int8 payloads and pages with
-float32 scales; float32 SSD scan parameters), shape and contiguity, allocates any output
-with ``torch.empty``, launches its hand-written kernel from ``csrc/`` on
-the current stream, and raises if the launch is refused. It never falls
-back to the plain version on the card.
+float32 scales; float32 SSD scan parameters), shape and contiguity,
+allocates any output and scratch with ``torch.empty``, launches its
+hand-written kernel from ``csrc/`` on the current stream, and raises if
+the launch is refused. It never falls back to the plain version on the
+card.
 
 The write wrappers (``kv_token_write``, ``kv_chunk_write``,
 ``block_scatter``, ``block_scatter_layers``,
@@ -22,6 +23,7 @@ are not counted); ``reset_launches`` sets every count to 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict
 
@@ -57,6 +59,10 @@ _SIGNATURES = {
     "paged_attention": ("paged_attention", [_P, _P, _P, _P, _P, _P, _I64,
                                             _I, _I, _I, _I, _I, _F, _I,
                                             _P]),
+    "paged_attention_tc": ("paged_attention", [_P, _P, _P, _P, _P, _P, _P,
+                                               _I64, _I, _I, _I, _I, _I, _I,
+                                               _F, _P]),
+    "paged_decode_splits": ("paged_attention", [_I64, _I, _I, _I, _I, _I]),
     "paged_prefill_attention": ("paged_prefill",
                                 [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                                  _I, _I, _I, _I, _F, _I, _P]),
@@ -73,6 +79,9 @@ _SIGNATURES = {
     "paged_attention_quant": ("paged_attention",
                               [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
                                _I, _I, _I, _F, _I, _P]),
+    "paged_attention_quant_tc": ("paged_attention",
+                                 [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                                  _I, _I, _I, _I, _I, _I, _F, _P]),
     "paged_prefill_attention_quant": ("paged_prefill",
                                       [_P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                        _I, _I, _I, _I, _I, _I, _I, _F, _I,
@@ -103,12 +112,15 @@ def _fn(name: str):
     return fn
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args,
+            entry: str = None) -> None:
+    """Launch C entry ``entry`` (default: ``name``) on the current stream
+    and count one launch of ``name``."""
     if device.index is not None and \
             device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensors are on {device}, but the current "
                          f"CUDA device is {torch.cuda.current_device()}")
-    rc = _fn(name)(*args, torch.cuda.current_stream().cuda_stream)
+    rc = _fn(entry or name)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {rc}")
@@ -187,7 +199,15 @@ def kv_token_write(k_pages, v_pages, k_new, v_new, slots):
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
     """Decode attention: q (B, H, D) over pools (N, bs, Hkv, D) through
     block_tables (B, P) int32, attending to positions < context_lens (B,)
-    int32. Rows with context_lens = 0 give zeros. Returns (B, H, D)."""
+    int32. Rows with context_lens = 0 give zeros. Returns (B, H, D).
+
+    bf16 q with D a multiple of 16 up to 128, over pools that start on a
+    16-byte boundary, takes the split-context tensor-core kernel: the
+    wrapper asks for the split count (``decode_splits``, from the shapes
+    alone) and allocates the float32 scratch of the splits' partials; the
+    C entry launches the split kernel and the combine. float32, and bf16
+    with other head dims, take the first, scalar kernel (D <= 256). Each
+    shape has one kernel; one call counts one launch."""
     name = "paged_attention"
     if _on_cpu(name, q, k_pages, v_pages, block_tables, context_lens):
         return R.paged_attention_ref(q, k_pages, v_pages, block_tables,
@@ -197,13 +217,60 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
     b, bs, hkv, g, d = _check_decode(name, q, k_pages, block_tables,
                                      context_lens)
     out = torch.empty_like(q)
-    if b:
+    if b and _decode_tc(q, k_pages, v_pages):
+        _launch_decode_tc(name, q, (k_pages, v_pages), (), block_tables,
+                          context_lens, out, bs, hkv, g)
+    elif b:
         _launch(name, q.device, q.data_ptr(), k_pages.data_ptr(),
                 v_pages.data_ptr(), block_tables.data_ptr(),
                 context_lens.data_ptr(), out.data_ptr(), b,
                 block_tables.shape[1], bs, hkv, g, d, 1.0 / math.sqrt(d),
                 code)
     return out
+
+
+def _decode_tc(q, k_pages, v_pages) -> bool:
+    """Whether a decode call takes the split-context tensor-core kernel:
+    bf16 q with D a multiple of 16 up to 128, pools on a 16-byte boundary
+    (16-byte asynchronous copies) and q on a 4-byte one. The C entries
+    hold the same rule (``dc_takes``) and refuse a call on the other
+    route."""
+    d = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and d % 16 == 0 and d <= 128
+            and k_pages.data_ptr() % 16 == 0
+            and v_pages.data_ptr() % 16 == 0 and q.data_ptr() % 4 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_splits(device: int, b: int, p: int, bs: int, hkv: int, d: int,
+                  quant: bool) -> int:
+    """Runs per (sequence, kv head) context of the split-context decode
+    kernel on CUDA device ``device`` for B sequences over (B, P) tables of
+    bs-token pages: about one wave of its blocks, from the shapes and the
+    kernel's occupancy alone (``paged_decode_splits`` in
+    ``csrc/paged_attention.cu``), never from context_lens."""
+    with torch.cuda.device(device):
+        n = _fn("paged_decode_splits")(b, p, bs, hkv, d, int(quant))
+    if n < 1:
+        raise RuntimeError(f"paged_decode_splits failed with cudaError {-n}")
+    return n
+
+
+def _launch_decode_tc(name, q, pages, scales, tables, lens, out, bs, hkv,
+                      g):
+    """One launch of the split-context decode entry ``name``_tc: the split
+    count, the float32 scratch of the partials (O, then (m, l)) in one
+    tensor, and the call."""
+    b, p = tables.shape
+    d = q.shape[-1]
+    dev = torch.cuda.current_device()
+    splits = decode_splits(dev, b, p, bs, hkv, d, bool(scales))
+    scratch = torch.empty(b * hkv * g * splits * (d + 2),
+                          dtype=torch.float32, device=q.device)
+    _launch(name, q.device, q.data_ptr(),
+            *(t.data_ptr() for t in (*pages, *scales)), tables.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, p, bs,
+            hkv, g, d, splits, 1.0 / math.sqrt(d), entry=f"{name}_tc")
 
 
 def _check_decode(name, q, pages, block_tables, context_lens):
@@ -513,7 +580,15 @@ def paged_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
     over k_pages/v_pages (N, bs, Hkv, D) int8 with scales (N, Hkv) float32,
     dequantized as each page is fetched, through block_tables (B, P) int32
     up to context_lens (B,) int32. Rows with context_lens = 0 give zeros.
-    Returns (B, H, D) in q's dtype."""
+    Returns (B, H, D) in q's dtype.
+
+    bfloat16 q with D a multiple of 16 up to 128, over pools that start on
+    a 16-byte boundary, takes the int8 instantiation of
+    ``paged_attention``'s split-context tensor-core kernel (int8 rows
+    converted to bf16 in shared memory, the scales folded into the scores
+    and the probabilities in float32), with the float32 scratch of the
+    splits' partials allocated here; float32 q, and bfloat16 q with other
+    head dims, take the first, scalar kernel. Each shape has one kernel."""
     name = "paged_attention_quant"
     if _on_cpu(name, q, k_pages, v_pages, k_scale, v_scale, block_tables,
                context_lens):
@@ -524,7 +599,10 @@ def paged_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
     b, bs, hkv, g, d = _check_decode(name, q, k_pages, block_tables,
                                      context_lens)
     out = torch.empty_like(q)
-    if b:
+    if b and _decode_tc(q, k_pages, v_pages):
+        _launch_decode_tc(name, q, (k_pages, v_pages), (k_scale, v_scale),
+                          block_tables, context_lens, out, bs, hkv, g)
+    elif b:
         _launch(name, q.device, q.data_ptr(), k_pages.data_ptr(),
                 v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                 block_tables.data_ptr(), context_lens.data_ptr(),

@@ -9,9 +9,11 @@ and plain version both accumulate in float32 and round once, so they may
 differ by one bfloat16 step of the output (2**-7 of its size at most).
 The bf16 tensor-core kernels (P split into two bf16 parts) are held at
 the same tolerance at the edges of their 64-row and 64-key tiles: paged
-prefill over bf16 pools (B4) and over int8 pages (B10), and
-sliding-window attention (B15), whose window edges cut tiles too; bf16
-head dims outside those kernels take the scalar kernels of B10 and B15.
+prefill over bf16 pools (B4) and over int8 pages (B10), sliding-window
+attention (B15), whose window edges cut tiles too, and split-context
+decode over bf16 pools (B2) and int8 pages (B9), whose runs of tiles
+may be empty; bf16 head dims outside those kernels take the scalar
+kernels of B2, B9, B10 and B15.
 Two cases run at Qwen2.5-14B's serve-pool size, where byte offsets pass
 2**31 and only 64-bit offset arithmetic gives the right blocks. The int8
 quantize and dequantize kernels are exact against their plain versions,
@@ -77,6 +79,72 @@ def test_paged_attention(dev, dt, b, h, hkv, d, bs, p):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **tol(dt))
     assert not got[-1].any()
+
+
+# the bf16 split-context decode kernel's edges (B2 over bf16 pools, B9 over
+# int8 pages): contexts on and beside 64-key tile edges, a whole 1024-token
+# table and a padded row (context 0); G 1 / 5 / 8 / 16, D 64 / 128, bs 8 /
+# 16 / 32; and a table whose last run of tiles is empty for every row
+DECODE_CTX = (0, 1, 63, 64, 65, 255, 1024)
+DECODE_TILE_CASES = [
+    (4, 4, 64, 16, 64, DECODE_CTX, False),          # G 1
+    (40, 8, 128, 16, 64, DECODE_CTX, False),        # G 5, Qwen2.5-14B
+    (16, 2, 128, 8, 128, DECODE_CTX, False),        # G 8
+    (32, 2, 64, 32, 32, DECODE_CTX, False),         # G 16
+    (10, 2, 128, 16, 64, (1, 63, 65, 255, 900, 0), True),
+]
+
+
+def _decode_tiles(dev, seed, h, hkv, d, bs, p, lens, last_run_empty,
+                  quant):
+    """One bf16 decode call per row context in ``lens`` through the
+    wrapper and its plain version; checks the launch count, the padded
+    rows' exact zeros and, with ``last_run_empty``, that the wrapper's
+    last run of tiles starts past every context."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = len(lens)
+    n = p * b + 2
+    q = _rand(gen, (b, h, d), "bf16", dev)
+    bt = torch.randint(0, n, (b, p), generator=gen, device=dev,
+                       dtype=torch.int32)
+    cl = _ints(lens, dev)
+    ops.reset_launches()
+    if quant:
+        kq, ks = _int8_pool(gen, (n, bs, hkv, d), dev)
+        vq, vs = _int8_pool(gen, (n, bs, hkv, d), dev)
+        got = ops.paged_attention_quant(q, kq, vq, ks, vs, bt, cl)
+        want = R.paged_attention_quant_ref(q, kq, vq, ks, vs, bt, cl)
+        name = "paged_attention_quant"
+    else:
+        kp, vp = (_rand(gen, (n, bs, hkv, d), "bf16", dev) for _ in "kv")
+        got = ops.paged_attention(q, kp, vp, bt, cl)
+        want = R.paged_attention_ref(q, kp, vp, bt, cl)
+        name = "paged_attention"
+    torch.cuda.synchronize()
+    assert ops.launches[name] == 1
+    torch.testing.assert_close(got.float(), want.float(), **tol("bf16"))
+    assert not got[torch.as_tensor(np.asarray(lens) == 0, device=dev)].any()
+    if last_run_empty:
+        splits = ops.decode_splits(torch.cuda.current_device(), b, p, bs,
+                                   hkv, d, quant)
+        run = -(-(-(-p * bs // 64)) // splits) * 64
+        assert splits > 1 and (splits - 1) * run >= max(lens)
+
+
+@pytest.mark.parametrize("h,hkv,d,bs,p,lens,last_run_empty",
+                         DECODE_TILE_CASES)
+def test_paged_attention_bf16_tiles(dev, h, hkv, d, bs, p, lens,
+                                    last_run_empty):
+    _decode_tiles(dev, 11, h, hkv, d, bs, p, lens, last_run_empty, False)
+
+
+@pytest.mark.parametrize("h,hkv,d,bs,p,lens,last_run_empty",
+                         DECODE_TILE_CASES)
+def test_paged_attention_quant_bf16_tiles(dev, h, hkv, d, bs, p, lens,
+                                          last_run_empty):
+    """B9 over int8 pools whose scales spread 0.3x to 3x per (page, kv
+    head)."""
+    _decode_tiles(dev, 12, h, hkv, d, bs, p, lens, last_run_empty, True)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -228,6 +296,25 @@ def test_launches_are_counted_and_bad_inputs_raise(dev):
         ops.block_gather_layers(pools, torch.tensor([1], device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         ops.block_gather_layers(pools.transpose(0, 1), _ints([1], dev))
+    # B2: one launch per call on either route (bf16 D 128: the split kernel
+    # and its combine, in one C entry; f32: the scalar kernel), none for a
+    # call that raises
+    kp = torch.zeros((4, 16, 2, 128), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((2, 10, 128), dtype=torch.bfloat16, device=dev)
+    bt, cl = _ints([[0, 1], [2, 3]], dev), _ints([20, 0], dev)
+    ops.paged_attention(q, kp, kp, bt, cl)
+    ops.paged_attention(q.float(), kp.float(), kp.float(), bt, cl)
+    assert ops.launches["paged_attention"] == 2
+    with pytest.raises(TypeError):                  # q not the pool dtype
+        ops.paged_attention(q.float(), kp, kp, bt, cl)
+    with pytest.raises(TypeError):                  # tables not int32
+        ops.paged_attention(q, kp, kp, bt.long(), cl)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.paged_attention(q.transpose(0, 1), kp, kp, bt, cl)
+    with pytest.raises(ValueError, match="H/Hkv <= 16"):   # G = 20
+        ops.paged_attention(torch.zeros((2, 40, 128), dtype=torch.bfloat16,
+                                        device=dev), kp, kp, bt, cl)
+    assert ops.launches["paged_attention"] == 2
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -426,12 +513,37 @@ def test_swa_attention_bf16_tiles(dev, b, s, h, d, window):
 
 
 def test_bf16_head_dims_outside_the_tensor_cores_take_scalar_kernels(dev):
-    """bf16 B10 at D 24 and 72 and bf16 B15 at D 20 and 72 (no multiple of
-    16) launch the scalar kernels and match their plain versions, where
-    bf16 B4 refuses D 72 (test_paged_prefill_attention_bf16_head_dim_
-    outside_tiles_raises)."""
+    """bf16 B2, B9 and B10 at D 24 and 72 and bf16 B15 at D 20 and 72 (no
+    multiple of 16) launch the scalar kernels and match their plain
+    versions, where bf16 B4 refuses D 72 (test_paged_prefill_attention_
+    bf16_head_dim_outside_tiles_raises); B2 and B9 at D 48 run and match in
+    float32 (scalar kernel) and bf16 (the tensor-core kernel). The scalar
+    C entries refuse a bf16 call in the tensor-core shapes: each shape has
+    one kernel."""
     gen = torch.Generator(device=dev).manual_seed(8)
     ops.reset_launches()
+    bt = _ints([[0, 3, 5, 7], [1, 2, 4, 6]], dev)
+    cl = _ints([29, 7], dev)
+    for dt, d in (("bf16", 24), ("bf16", 72), ("f32", 48), ("bf16", 48)):
+        q = _rand(gen, (2, 10, d), dt, dev)
+        kp, vp = (_rand(gen, (9, 8, 2, d), dt, dev) for _ in "kv")
+        got = ops.paged_attention(q, kp, vp, bt, cl)
+        want = R.paged_attention_ref(q, kp, vp, bt, cl)
+        kq, ks = _int8_pool(gen, (9, 8, 2, d), dev)
+        vq, vs = _int8_pool(gen, (9, 8, 2, d), dev)
+        got_q = ops.paged_attention_quant(q, kq, vq, ks, vs, bt, cl)
+        want_q = R.paged_attention_quant_ref(q, kq, vq, ks, vs, bt, cl)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol(dt))
+        torch.testing.assert_close(got_q.float(), want_q.float(), **tol(dt))
+    assert ops.launches["paged_attention"] == 4
+    assert ops.launches["paged_attention_quant"] == 4
+    out = torch.empty_like(q)
+    rc = ops._fn("paged_attention")(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
+        cl.data_ptr(), out.data_ptr(), 2, 4, 8, 2, 5, 48, 0.125, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0                      # bf16 D 48: paged_attention_tc's
     for d in (24, 72):
         q = _rand(gen, (2, 6, 8, d), "bf16", dev)
         kq, ks = _int8_pool(gen, (9, 8, 2, d), dev)
@@ -500,6 +612,9 @@ def test_int8_attention_and_block_copy_launches_and_bad_inputs(dev):
             fn(qq, kq, vq, ks, vs[:3].contiguous(), bt, pos)
         with pytest.raises(TypeError):                        # bf16 pages
             fn(qq, kq.to(torch.bfloat16), vq, ks, vs, bt, pos)
+    with pytest.raises(ValueError, match="H/Hkv <= 16"):       # G = 20
+        ops.paged_attention_quant(_rand(gen, (2, 40, 64), "bf16", dev), kq,
+                                  vq, ks, vs, bt, cl)
     with pytest.raises(TypeError):                            # ids not int32
         ops.block_gather(pages, torch.tensor([1], device=dev))
     with pytest.raises(ValueError, match="staging shape"):

@@ -25,13 +25,14 @@ attention at the attention tolerances above.
 
 The bf16 tensor-core CUDA kernels cannot run here, so their arithmetic
 is emulated in plain torch: paged prefill over bf16 pools and over int8
-pages (``emulate_prefill_tc``) and sliding-window attention
-(``emulate_swa_tc``). Each emulation is held to the Pallas kernel and the
-JAX oracle at the bf16 tolerance above and, at the main path's shape (or
-Hymba-1.5B's widths), to the port's plain version within
-``chip_smoke.py``'s bf16 tolerance for that kernel (2e-3 for paged
-prefill; one bf16 step, atol 2e-3 and rtol 8e-3, for sliding-window
-attention).
+pages (``emulate_prefill_tc``), split-context paged decode over bf16
+pools and over int8 pages (``emulate_decode_tc``) and sliding-window
+attention (``emulate_swa_tc``). Each emulation is held to the Pallas
+kernel and the JAX oracle at the bf16 tolerance above and, at the main
+path's shape (or Hymba-1.5B's widths), to the port's plain version
+within ``chip_smoke.py``'s bf16 tolerance for that kernel (2e-3 for
+paged prefill and decode; one bf16 step, atol 2e-3 and rtol 8e-3, for
+sliding-window attention).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -317,6 +318,158 @@ def test_prefill_tc_int8_emulation_at_main_path_shape(p, spread):
                                                qp)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
                                rtol=8e-3 if spread else 2e-3)
+    assert not got[-1].any()
+
+
+# The bf16 split-context decode kernel's arithmetic (csrc/paged_attention.cu,
+# paged_decode_tc_kernel), emulated in plain torch: each (sequence, kv
+# head) context cut into `splits` runs of ceil(tiles / splits) 64-key
+# tiles of the table, the G query heads padded with zero rows to 16, each
+# run's tiles through the online step of the paged-prefill emulation (keys
+# past context_len zero and masked), then the f32 combine of the runs'
+# partials with m in raw score units: m* = max m_s, weights 2^((m_s - m*)
+# c), O = sum w O_s / max(sum w l_s, 1e-20), rounded once. A run that
+# starts at or past context_len is empty (m = NEG_INF, l = 0, O = 0).
+def emulate_decode_tc(q, k_pages, v_pages, tables, context_lens, splits,
+                      k_scale=None, v_scale=None):
+    b, h, d = q.shape
+    _, bs, hkv, _ = k_pages.shape
+    g = h // hkv
+    scale = torch.tensor(1.4426950408889634 / np.sqrt(d), dtype=torch.float32)
+    n_tiles = -(-tables.shape[1] * bs // 64)
+    run = max(1, -(-n_tiles // splits)) * 64          # keys per run
+    qr = torch.zeros(b, hkv, 16, d)
+    qr[:, :, :g] = q.float().reshape(b, hkv, g, d)
+    out = torch.zeros(b, hkv, g, d)
+    for bi in range(b):
+        n_tok = max(0, min(int(context_lens[bi]), tables.shape[1] * bs))
+        parts = []
+        for s_ in range(splits):
+            m = torch.full((hkv, 16), NEG_INF)
+            l, o = torch.zeros(hkv, 16), torch.zeros(hkv, 16, d)
+            t_end = min(n_tok, (s_ + 1) * run)
+            for t0 in range(s_ * run, t_end, 64):
+                keys = torch.arange(t0, t0 + 64)
+                ok = keys < t_end
+                pg = tables[bi].long()[torch.where(ok, keys // bs, 0)]
+                kt = k_pages[pg, keys % bs].float() * ok[:, None, None]
+                vt = v_pages[pg, keys % bs].float() * ok[:, None, None]
+                s = torch.einsum("krd,tkd->krt", qr[bi], kt)
+                vsc = None
+                if k_scale is not None:     # (hkv, 1, keys), 0 past t_end
+                    s = s * (k_scale[pg] * ok[:, None]).T[:, None, :]
+                    vsc = (v_scale[pg] * ok[:, None]).T[:, None, :]
+                m, l, o = _online_step(s, ok[None, None, :], m, l, o, vt,
+                                       scale, vsc)
+            parts.append((m, l, o))
+        ms = torch.stack([x[0] for x in parts])
+        w = torch.exp2((ms - ms.amax(0)) * scale)
+        lsum = (torch.stack([x[1] for x in parts]) * w).sum(0)
+        osum = (torch.stack([x[2] for x in parts]) * w[..., None]).sum(0)
+        out[bi] = (osum / torch.clamp(lsum, min=1e-20)[..., None])[:, :g]
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def _decode_lens(rng, b, p, bs):
+    """Context lengths of a decode sweep: random, one row of the whole
+    table, the last row padded (context_lens = 0)."""
+    lens = rng.integers(1, p * bs + 1, b)
+    lens[0], lens[-1] = p * bs, 0
+    return lens
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7])
+@pytest.mark.parametrize("b,h,hkv,d,bs,p", [
+    (3, 4, 4, 32, 8, 12),        # G = 1: 96-token tables, two tiles
+    (3, 8, 2, 64, 16, 5),        # G = 4 (test_kernels.py)
+    (3, 10, 2, 32, 16, 12),      # G = 5, as Qwen2.5-14B: three tiles
+])
+def test_decode_tc_emulation_matches_pallas(b, h, hkv, d, bs, p, splits):
+    """The emulated bf16 split-context decode kernel against the Pallas
+    kernel (interpret mode) and the JAX oracle at the bf16 attention
+    tolerance of this file, with one run, two runs and more runs than a
+    row has tiles (empty runs); the padded row is exact zeros. The JAX
+    oracle averages uniformly over a row with context_lens = 0, so that
+    row is held to the Pallas kernel only."""
+    rng = np.random.default_rng(14)
+    n = p * b + 2
+    q, tq = pair(rng.standard_normal((b, h, d)), "bf16")
+    kp, tkp = pair(rng.standard_normal((n, bs, hkv, d)), "bf16")
+    vp, tvp = pair(rng.standard_normal((n, bs, hkv, d)), "bf16")
+    bt, tbt = ints(rng.integers(0, n, (b, p)))
+    cl, tcl = ints(_decode_lens(rng, b, p, bs))
+    got = emulate_decode_tc(tq, tkp, tvp, tbt, tcl, splits)
+    np.testing.assert_allclose(
+        npf(got), npf(jops.paged_attention(q, kp, vp, bt, cl)),
+        **tol("bf16"))
+    np.testing.assert_allclose(
+        npf(got)[:-1], npf(JR.paged_attention_ref(q, kp, vp, bt, cl))[:-1],
+        **tol("bf16"))
+    assert not npf(got)[-1].any()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7])
+@pytest.mark.parametrize("b,h,hkv,d,bs,p", [   # test_quant_kernels.py
+    (3, 4, 4, 32, 8, 12),
+    (3, 8, 2, 64, 16, 5),
+    (3, 10, 2, 32, 16, 12),
+])
+def test_decode_tc_int8_emulation_matches_pallas(b, h, hkv, d, bs, p,
+                                                 splits):
+    """The emulated bf16 split-context decode kernel over int8 pages (B9)
+    against the Pallas kernel (interpret mode) and the JAX oracle, at the
+    bf16 attention tolerance of this file; the padded row is exact
+    zeros."""
+    rng = np.random.default_rng(15)
+    n = p * b + 4
+    q, tq = pair(rng.standard_normal((b, h, d)), "bf16")
+    _, (kq, tkq), (ks, tks) = int8_pool(rng, (n, bs, hkv, d))
+    _, (vq, tvq), (vs, tvs) = int8_pool(rng, (n, bs, hkv, d))
+    bt, tbt = ints(rng.integers(0, n, (b, p)))
+    cl, tcl = ints(_decode_lens(rng, b, p, bs))
+    got = emulate_decode_tc(tq, tkq, tvq, tbt, tcl, splits, tks, tvs)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        npf(got),
+        npf(jops.paged_attention_quant(q, kq, vq, ks, vs, bt, cl)),
+        **tol("bf16"))
+    np.testing.assert_allclose(
+        npf(got)[:-1],
+        npf(JR.paged_attention_quant_ref(q, kq, vq, ks, vs, bt, cl))[:-1],
+        **tol("bf16"))
+    assert not npf(got)[-1].any()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("p,splits", [(64, 6), (16, 4)])
+def test_decode_tc_emulation_at_main_path_shape(p, splits, quant):
+    """At the main path's decode shape (Qwen2.5-14B: B 8, H 40, Hkv 8, D
+    128, bs 16; 64-page tables in 6 runs of 3 tiles and 16-page tables in
+    4 runs of 1 tile, the split counts of an H100), with contexts that are
+    no multiple of 64 and the last row padded, the emulated split-context
+    kernel over bf16 pools (B2) and over int8 pages quantized per (page,
+    kv head) (B9) stays within chip_smoke.py's bf16 tolerance (atol = rtol
+    = 2e-3) of the plain version."""
+    b, h, hkv, d, bs = 8, 40, 8, 128, 16
+    gen = torch.Generator().manual_seed(0)
+    n = b * p + 1
+    kp, vp = (torch.randn(n, bs, hkv, d, generator=gen).bfloat16()
+              for _ in "kv")
+    q = torch.randn(b, h, d, generator=gen).bfloat16()
+    rng = np.random.default_rng(0)
+    tables = torch.from_numpy(
+        rng.permutation(b * p).reshape(b, p).astype(np.int32))
+    lens = np.array([1, 63, 65, 200, p * bs - 1, p * bs - 37, p * bs, 0])
+    cl = torch.from_numpy(lens.astype(np.int32))
+    if quant:
+        (kq, ks), (vq, vs) = (R.quantize_block_ref(x) for x in (kp, vp))
+        got = emulate_decode_tc(q, kq, vq, tables, cl, splits, ks, vs)
+        want = R.paged_attention_quant_ref(q, kq, vq, ks, vs, tables, cl)
+    else:
+        got = emulate_decode_tc(q, kp, vp, tables, cl, splits)
+        want = R.paged_attention_ref(q, kp, vp, tables, cl)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=2e-3)
     assert not got[-1].any()
 
 

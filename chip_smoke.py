@@ -12,40 +12,51 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    kernels/csrc`` with nvcc (all sources in parallel), and nvcc's ptxas
    register/spill report; the registers, spill bytes and static shared
    memory of the bf16 tensor-core kernels (B2, B4, B9 and B10 at D 128,
-   B15 at D 64) also go into the results;
+   B15 at D 64) and of the bf16 KV write kernels (plain and fused with
+   RoPE) also go into the results;
 3. kernels: each kernel at the serving path's shapes for Qwen2.5-14B
    (bf16, and float32 for correctness), held against its plain PyTorch
    version (exact for writes, copies and the int8 quantize / dequantize
-   kernels, whose round trip must also land within scale/2; 2e-3 bf16 /
-   3e-5 f32 for the attention kernels; the block migrations on pools of
-   the serve phase's size, whose byte offsets pass 2**31) and timed with
-   CUDA events: the kernel alone inside a CUDA graph, and, called
-   eagerly, its wrapper, its plain version and one PyTorch library call
-   computing the same function where there is one; beside them its bound
-   (bytes over 3.35 TB/s or operations over the peak of their type). The
-   int8-pool attention kernels take the float attention cases' queries,
-   tables and lengths over those pools quantized on the card (bf16 B10
-   runs the int8 instantiation of B4's tensor-core kernel), and their
-   difference from the float kernels on the same inputs (the int8 error)
-   is printed, ungated; bf16 B2 and B9 run the split-context tensor-core
-   decode kernel, and their padded row must come out as exact zeros. B2
-   and B4 are held and timed a second time at the serve phases' own
-   contexts (variant ``ctx256``: 256-token contexts through 16-page
-   tables), and B14 at Mamba2's shapes is also compared, with its
-   plain version, against the plain version run in float64 on the card
-   (both errors printed, ungated);
+   kernels, whose round trip must also land within scale/2; the decode and
+   prefill writes fused with the RoPE of q and k bit for bit or one step
+   of the dtype off, the count printed, the pool rows they do not write
+   untouched; 2e-3 bf16 / 3e-5 f32 for the attention kernels; the block
+   migrations on pools of the serve phase's size, whose byte offsets pass
+   2**31) and timed with CUDA events: the kernel alone inside a CUDA
+   graph, and, called eagerly, its wrapper, its plain version and one
+   PyTorch library call computing the same function where there is one
+   (for B1 and B3 also inside a CUDA graph, like for like with the
+   kernel); beside them its bound (bytes over 3.35 TB/s or operations over
+   the peak of their type). The fused writes' plain version is the eager
+   RoPE of q and k and the write that they replace. The int8-pool
+   attention kernels take the float attention cases' queries, tables and
+   lengths over those pools quantized on the card (bf16 B10 runs the int8
+   instantiation of B4's tensor-core kernel), and their difference from
+   the float kernels on the same inputs (the int8 error) is printed,
+   ungated; bf16 B2 and B9 run the split-context tensor-core decode
+   kernel, and their padded row must come out as exact zeros. B2 and B4
+   are held and timed a second time at the serve phases' own contexts
+   (variant ``ctx256``: 256-token contexts through 16-page tables), and
+   B14 at Mamba2's shapes is also compared, with its plain version,
+   against the plain version run in float64 on the card (both errors
+   printed, ungated);
 4. serve fp16: four deep_research apps through the tokencake engine with
    ``TorchBackend`` at Qwen2.5-14B's full width and depth (48 layers,
    random bf16 weights from seed 0), a 2048-block device pool and a
    1024-block pinned host pool; launch counts are zeroed just before and
-   read just after, and every kernel of the path (B1-B6) must have run,
-   with at least one offload and no truncated prompt; then the cache's
-   offload and upload of 32 blocks are timed;
+   read just after, and every kernel of the path (B2, B4, B5, B6 and the
+   RoPE + B1 / RoPE + B3 writes) must have run, the fused writes once per
+   layer of every decode step and prefill chunk and B1 / B3 alone never,
+   with at least one offload and no truncated prompt; then one decode step
+   and one prefill chunk at the serve's shape run under ``torch.profiler``,
+   which counts their device kernels, and the cache's offload and upload
+   of 32 blocks are timed;
 5. serve int8_host: the same apps on the same weights with
    ``TemporalConfig(kv_precision="int8_host")``: offloads quantize on the
    card into an int8 pinned host pool, uploads dequantize on the card;
-   B1-B4, B7 and B8 must have run, with at least one offload and one
-   upload and wire bytes in whole int8 blocks; then the same timing;
+   the fused writes, B2, B4, B7 and B8 must have run (the same launch
+   checks), with at least one offload and one upload and wire bytes in
+   whole int8 blocks; then the same timing;
 6. families: Mamba2-130M (SSM) and Hymba-1.5B (hybrid: sliding-window
    attention beside SSM heads) at full width and depth, random bf16
    weights from seed 0, through ``models.model.prefill`` of 4 prompts of
@@ -63,10 +74,12 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 B9-B13b (``paged_attention_quant``, ``paged_prefill_attention_quant``,
 ``kv_block_quant``, ``kv_block_dequant``, ``block_gather``,
 ``block_scatter``) run in the kernel phase only: no serving path of the
-JAX package calls them, so their launches are those of phase 3. B14 and
-B15 are held and timed in phase 3 at the families phase's shapes (B14 at
-Mamba2's and at Hymba's; bf16 B15 is its tensor-core kernel); their
-launches are those of phase 6.
+JAX package calls them, so their launches are those of phase 3. So do
+B1 and B3 alone (``kv_token_write``, ``kv_chunk_write``): the serve
+writes K/V through ``rope_kv_token_write`` and ``rope_kv_chunk_write``.
+B14 and B15 are held and timed in phase 3 at the families phase's shapes
+(B14 at Mamba2's and at Hymba's; bf16 B15 is its tensor-core kernel);
+their launches are those of phase 6.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``. With ``--only
@@ -114,6 +127,10 @@ KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
                         "src/repro/kernels/paged_attention.py:293"),
     "kv_chunk_write": ("src/repro_torch/kernels/csrc/kv_write.cu",
                        "src/repro/kernels/kv_write.py:221"),
+    "rope_kv_token_write": ("src/repro_torch/kernels/csrc/kv_write.cu",
+                            "src/repro/kernels/kv_write.py:276"),
+    "rope_kv_chunk_write": ("src/repro_torch/kernels/csrc/kv_write.cu",
+                            "src/repro/kernels/kv_write.py:221"),
     "paged_prefill_attention": (
         "src/repro_torch/kernels/csrc/paged_prefill.cu",
         "src/repro/kernels/paged_prefill.py:290"),
@@ -161,19 +178,23 @@ TOL_SSD = dict(atol=2e-3, rtol=2e-3)
 TOL_ONE_STEP = {"bf16": dict(atol=2e-3, rtol=8e-3),
                 "f32": dict(atol=3e-5, rtol=3e-5)}
 
-# the kernels each serve phase must launch
+# the kernels each serve phase must launch; the fused RoPE + KV writes
+# once per layer of every decode step and prefill chunk
 SERVE_KERNELS = {
-    "fp16": ("kv_token_write", "paged_attention", "kv_chunk_write",
+    "fp16": ("rope_kv_token_write", "paged_attention", "rope_kv_chunk_write",
              "paged_prefill_attention", "block_gather_layers",
              "block_scatter_layers"),
-    "int8_host": ("kv_token_write", "paged_attention", "kv_chunk_write",
-                  "paged_prefill_attention", "block_gather_quant_layers",
+    "int8_host": ("rope_kv_token_write", "paged_attention",
+                  "rope_kv_chunk_write", "paged_prefill_attention",
+                  "block_gather_quant_layers",
                   "block_scatter_dequant_layers"),
 }
-# run in the kernel phase only (no serving path calls them)
-KERNEL_PHASE_ONLY = ("kv_block_quant", "kv_block_dequant",
-                     "paged_attention_quant", "paged_prefill_attention_quant",
-                     "block_gather", "block_scatter")
+# run in the kernel phase only (no serving path calls them; the serve's
+# layers write K/V through the fused entries, never B1 / B3 alone)
+KERNEL_PHASE_ONLY = ("kv_token_write", "kv_chunk_write", "kv_block_quant",
+                     "kv_block_dequant", "paged_attention_quant",
+                     "paged_prefill_attention_quant", "block_gather",
+                     "block_scatter")
 NO_LIBRARY = "none: no single PyTorch call computes this function"
 # the bf16 tensor-core kernels whose ptxas resources the results keep:
 # label -> (source, pattern of the mangled name)
@@ -199,12 +220,22 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def tc_resources(report) -> dict:
+# the KV write kernels (bf16, 16-byte vectors) whose ptxas resources the
+# results keep: the decode and chunk templates, plain and fused with RoPE
+WRITE_KERNELS = {
+    f"kv_{kind}_write_kernel<bf16, 8, {rope}> ({name})": (
+        "kv_write", rf"kv_{kind}_write_kernelI13__nv_bfloat16Li8ELb{flag}E")
+    for kind, rope, flag, name in (
+        ("token", "false", 0, "B1"), ("token", "true", 1, "B1 + RoPE"),
+        ("chunk", "false", 0, "B3"), ("chunk", "true", 1, "B3 + RoPE"))}
+
+
+def tc_resources(report, kernels=TC_KERNELS) -> dict:
     """Registers, spill bytes and static shared memory of each kernel of
-    ``TC_KERNELS``, read from ``report(source)``, nvcc's ``-Xptxas -v``
+    ``kernels``, read from ``report(source)``, nvcc's ``-Xptxas -v``
     output; None for a kernel the report does not name."""
     out = {}
-    for label, (source, pattern) in TC_KERNELS.items():
+    for label, (source, pattern) in kernels.items():
         lines = report(source).splitlines()
         out[label] = None
         for i, line in enumerate(lines):
@@ -287,6 +318,7 @@ def kernel_cases(dt: str):
     flops this data needs."""
     import numpy as np
     import torch
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as R
 
@@ -296,6 +328,7 @@ def kernel_cases(dt: str):
     es = torch.finfo(td).bits // 8
     row = HKV * D * es
     rng = np.random.default_rng(0)
+    theta = get_config("qwen2_5_14b_serving").rope_theta
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(td)
@@ -324,7 +357,28 @@ def kernel_cases(dt: str):
         library=lambda: (kf.index_copy_(0, sl64, kn),
                          vf.index_copy_(0, sl64, vn)),
         library_call="index_copy_ on the K and on the V pool",
-        nbytes=4 * (B - 2) * row + 4 * B, flops=0.0))
+        library_graph=True, nbytes=4 * (B - 2) * row + 4 * B, flops=0.0))
+
+    # B1 fused with the RoPE of q and k (the decode layer's write, one
+    # launch): B1's rows and slots, new q (8, 40, 128) and K/V, positions
+    # up to 4096 (from their own generator, so rng's later draws stay as
+    # they were). Bytes: q read and written, the live rows' K/V, slots,
+    # positions and the frequency table; operations: 6 f32 per roped pair
+    rope_rng = np.random.default_rng(1)
+    qd, kd1, vd1 = rand(B, H, D), rand(B, HKV, D), rand(B, HKV, D)
+    posd = ints(rope_rng.integers(0, 4097, B))
+    live_d = torch.zeros(n * BS, dtype=torch.bool, device=dev)
+    live_d[sl64[:-2]] = True
+    cases.append(dict(
+        name="rope_kv_token_write", kind="rope_write", targets=(kp, vp),
+        written=live_d,
+        kernel=lambda: ops.rope_kv_token_write(qd, kd1, vd1, kp, vp, sl,
+                                               posd, theta),
+        plain=lambda: R.rope_kv_token_write_ref(qd, kd1, vd1, kp, vp, sl,
+                                                posd, theta),
+        library=None, library_call=NO_LIBRARY,
+        nbytes=2 * B * H * D * es + 4 * (B - 2) * row + 8 * B + 2 * D,
+        flops=3.0 * (B * H + (B - 2) * HKV) * D, ops_dt="f32"))
 
     # B2 paged_attention: a full 64-page table per row, one padded row
     q = rand(B, H, D)
@@ -399,8 +453,32 @@ def kernel_cases(dt: str):
         library=lambda: (kf.index_copy_(0, cs64, kc_live),
                          vf.index_copy_(0, cs64, vc_live)),
         library_call="index_copy_ on the K and on the V pool",
+        library_graph=True,
         nbytes=4 * int(counts.sum()) * row + 4 * (B * pp + 2 * B),
         flops=0.0))
+
+    # B3 fused with the RoPE of q and k (the prefill layer's write): B3's
+    # windows, new q (8, 32, 40, 128) and K/V, q roped at every token (the
+    # padded row at position 0, as the decoder clamps q_pos = -1),
+    # positions up to 4096
+    qw, kw, vw = rand(B, C, H, D), rand(B, C, HKV, D), rand(B, C, HKV, D)
+    posw = np.zeros((B, C), np.int32)
+    posw[:B - 1] = (rope_rng.integers(0, 4097 - C, B - 1)[:, None]
+                    + np.arange(C))
+    pw = ints(posw)
+    live_c = torch.zeros(n * BS, dtype=torch.bool, device=dev)
+    live_c[cs64] = True
+    cases.append(dict(
+        name="rope_kv_chunk_write", kind="rope_write", targets=(kp, vp),
+        written=live_c,
+        kernel=lambda: ops.rope_kv_chunk_write(qw, kw, vw, kp, vp, wp, ws, wc,
+                                               pw, theta),
+        plain=lambda: R.rope_kv_chunk_write_ref(qw, kw, vw, kp, vp, wp, ws,
+                                                wc, pw, theta),
+        library=None, library_call=NO_LIBRARY,
+        nbytes=(2 * B * C * H * D * es + 4 * int(counts.sum()) * row
+                + 4 * (B * pp + 2 * B) + 4 * B * C + 2 * D),
+        flops=3.0 * (B * C * H + int(counts.sum()) * HKV) * D, ops_dt="f32"))
 
     # B4 paged_prefill_attention: the last 32-token chunk of a 1024-token
     # context per row; the last row is padding (q_pos = -1)
@@ -641,17 +719,62 @@ def family_kernel_cases(dt: str):
     return cases
 
 
+def one_step(got, want):
+    """(count of differing elements, max abs difference) of ``got`` from
+    ``want``; raises unless each differing element lies one step of their
+    dtype (the gap to the next value away from 0) from ``want``."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bits = {torch.float32: 23, torch.bfloat16: 7}[got.dtype]
+
+    def step(x):
+        _, e = torch.frexp(x.abs())
+        st = torch.ldexp(torch.ones_like(x), e - 1 - bits)
+        return torch.where(x == 0, torch.full_like(
+            x, torch.finfo(got.dtype).tiny * 2.0 ** -bits), st)
+
+    bad = diff > torch.maximum(step(g), step(w))
+    assert not bool(bad.any()), (f"{int(bad.sum())} elements more than one "
+                                 f"step off, max abs {float(diff.max())}")
+    return int((diff > 0).sum()), float(diff.max())
+
+
 def check_case(case: dict, dt: str) -> float:
     """Kernel and plain version on the same inputs; returns the max abs
     difference and raises if it is outside the tolerance. In-place writes
     start from the same snapshot of their pools; decode-write pools are
-    compared on every page but the scratch page. Quantizers must give the
-    plain version's payload and scales exactly, and dequantizing their
-    output must land within scale/2 of the source (plus the float32
+    compared on every page but the scratch page. The fused RoPE + KV writes
+    must give the plain version's roped q and pools bit for bit or one step
+    of the dtype off (their count goes to ``case["mismatches"]``), and
+    leave every pool row they do not write bit for bit. Quantizers must
+    give the plain version's payload and scales exactly, and dequantizing
+    their output must land within scale/2 of the source (plus the float32
     rounding of the quotient and the product, |x| * 2**-24 each)."""
     import torch
     from repro_torch.kernels import ref as R
 
+    if case["kind"] == "rope_write":
+        targets = case["targets"]
+        snap = [t.clone() for t in targets]
+        want_q = case["plain"]()
+        want = [t.clone() for t in targets]
+        for t, s in zip(targets, snap):
+            t.copy_(s)
+        got_q = case["kernel"]()
+        torch.cuda.synchronize()
+        n_diff, err = one_step(got_q, want_q)
+        live = case["written"][:-BS]           # the scratch page left out
+        for got, w, s in zip(targets, want, snap):
+            got, w, s = (x[:-1].reshape(-1, HKV, D) for x in (got, w, s))
+            assert torch.equal(got[~live], s[~live]), \
+                f"{case['name']}: wrote outside its slots"
+            assert not torch.equal(w[live], s[live]), \
+                f"{case['name']}: wrote nothing"
+            n, e = one_step(got, w)
+            n_diff, err = n_diff + n, max(err, e)
+        case["mismatches"] = n_diff
+        return err
     if case["kind"] == "quant":
         (q, s), (want_q, want_s) = case["kernel"](), case["plain"]()
         torch.cuda.synchronize()
@@ -722,6 +845,8 @@ def kernel_phase():
             if "shape" in case:
                 row["shape"] = case["shape"]
             row[f"max_abs_err_{dt}"] = err
+            if "mismatches" in case:     # fused RoPE writes: one step off
+                row[f"mismatches_{dt}"] = case["mismatches"]
             if case.get("plain64") is not None:   # information only
                 row[f"vs_f64_{dt}"] = d = f64_errors(case)
                 print(f"  {case['name']:28s} {dt}: against the plain version "
@@ -747,6 +872,8 @@ def kernel_phase():
                 library_ms=cuda_ms(lib) if lib is not None else None,
                 library_call=case["library_call"], nbytes=case["nbytes"],
                 flops=case["flops"])
+            if case.get("library_graph"):    # like for like with ``ms``
+                row["library_graph_ms"] = graph_ms(lib)
             row["bound_ms"], row["bound_by"] = bound_ms(
                 case["nbytes"], case["flops"], case.get("ops_dt", dt))
             libs = f"{row['library_ms']:.4f}" if lib is not None else "-"
@@ -757,7 +884,12 @@ def kernel_phase():
                   f"library {libs}"
                   f"  bound {row['bound_ms']:.4f} ({row['bound_by']})  "
                   f"err bf16 {err:.3g} f32 {row['max_abs_err_f32']:.3g}"
-                  + (f"  splits {row['splits']}" if "splits" in row else ""),
+                  + (f"  splits {row['splits']}" if "splits" in row else "")
+                  + (f"  library in a graph {row['library_graph_ms']:.5f}"
+                     if "library_graph_ms" in row else "")
+                  + (f"  one step off: bf16 {row['mismatches_bf16']}, f32 "
+                     f"{row['mismatches_f32']} elements"
+                     if "mismatches_bf16" in row else ""),
                   flush=True)
     return rows
 
@@ -800,6 +932,7 @@ def serve_phase(card: str, kv_precision: str, params=None):
     from repro_torch.data.workloads import build_workload
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import MCPFrontend
+    from repro_torch.models import model as M
 
     n_apps = 4
     cfg = get_config("qwen2_5_14b_serving")
@@ -830,12 +963,29 @@ def serve_phase(card: str, kv_precision: str, params=None):
     submit(front, build_workload, n_apps, prompt_cap=CTX_SHORT,
            decode_cap=32)
 
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    eng.run(max_time=1e5)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.launches)
+    # count the backend's decode steps and prefill chunks (the model-level
+    # entries it calls once per step / chunk) for the launch check
+    steps = {"paged_decode_step": 0, "paged_prefill_step": 0}
+    orig = {k: getattr(M, k) for k in steps}
+
+    def counted(name):
+        def call(*args, **kw):
+            steps[name] += 1
+            return orig[name](*args, **kw)
+        return call
+
+    for k in steps:
+        setattr(M, k, counted(k))
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        eng.run(max_time=1e5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+    finally:
+        for k, fn in orig.items():
+            setattr(M, k, fn)
     rep = front.report()
 
     assert rep["apps_finished"] == n_apps, rep["apps_finished"]
@@ -845,6 +995,13 @@ def serve_phase(card: str, kv_precision: str, params=None):
     assert backend.truncated_prompt_tokens == 0
     missing = [k for k in SERVE_KERNELS[kv_precision] if launches[k] <= 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
+    nl = cfg.num_layers
+    assert launches["rope_kv_token_write"] == \
+        steps["paged_decode_step"] * nl, (launches, steps)
+    assert launches["rope_kv_chunk_write"] == \
+        steps["paged_prefill_step"] * nl, (launches, steps)
+    assert launches["kv_token_write"] == launches["kv_chunk_write"] == 0, \
+        "the serve wrote K/V through the standalone B1 / B3"
     bpb = A100_PCIE.block_bytes_for(kv_precision)
     if kv_precision == "int8_host":
         assert rep["uploads"] >= 1, rep["uploads"]
@@ -865,6 +1022,8 @@ def serve_phase(card: str, kv_precision: str, params=None):
         d2h_bytes=rep["d2h_bytes"], h2d_bytes=rep["h2d_bytes"],
         engine_block_bytes=bpb, wall_s=wall, setup_s=setup_s,
         generated_tokens_per_wall_s=generated / wall,
+        decode_steps=steps["paged_decode_step"],
+        prefill_chunks=steps["paged_prefill_step"],
         max_memory_allocated_bytes=peak, launches=launches,
         virtual_avg_latency_s=rep["avg_latency"],
         virtual_p90_latency_s=rep["p90_latency"])
@@ -877,8 +1036,68 @@ def serve_phase(card: str, kv_precision: str, params=None):
           f"{rep['h2d_bytes']} (engine's {kv_precision} block: {bpb} B); "
           f"engine latency (virtual time, A100 cost model, not card time) "
           f"avg {rep['avg_latency']:.1f} s", flush=True)
-    print(f"  launches on the main path: {launches}", flush=True)
+    print(f"  {steps['paged_decode_step']} decode steps and "
+          f"{steps['paged_prefill_step']} prefill chunks of {nl} layers; "
+          f"launches on the main path: {launches}", flush=True)
     return out, launches, backend
+
+
+def step_device_kernels(cfg, params, k_pool, v_pool) -> dict:
+    """One ``paged_decode_step`` and one ``paged_prefill_step`` at the serve
+    phases' shape (B 8 rows of 256-token contexts through 16-page tables;
+    a 32-token chunk at positions 224-255), each run once to warm up and
+    once under ``torch.profiler``: the device kernels, copies and memsets
+    it launched, and their summed device time (None if the profiler saw no
+    device event). Writes K/V into the pools' slots of those pages."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    dev = k_pool.device
+    nb = k_pool.shape[1] - 1                 # the last block is scratch
+    p16 = CTX_SHORT // BS
+    rng = np.random.default_rng(0)
+    tables = rng.permutation(nb)[:B * p16].reshape(B, p16)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+    dec = (t(rng.integers(0, cfg.vocab_size, B)), t(tables),
+           t([CTX_SHORT - 1] * B), t([CTX_SHORT] * B),
+           t(tables[:, -1] * BS + BS - 1))
+    wpages = np.full((B, (C - 1) // BS + 2), nb)
+    wpages[:, :2] = tables[:, -2:]
+    pre = (t(rng.integers(0, cfg.vocab_size, (B, C))), t(tables),
+           t(np.tile(CTX_SHORT - C + np.arange(C), (B, 1))), t(wpages),
+           t([0] * B), t([C] * B))
+    out = {}
+    for name, fn in (
+            ("decode_step", lambda: M.paged_decode_step(
+                cfg, params, k_pool, v_pool, *dec)),
+            ("prefill_chunk", lambda: M.paged_prefill_step(
+                cfg, params, k_pool, v_pool, *pre))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {"kernels": 0, "memcpy": 0, "memset": 0}
+        us, seen = 0.0, False
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            seen = True
+            kind = ("memcpy" if e.key.startswith("Memcpy") else
+                    "memset" if e.key.startswith("Memset") else "kernels")
+            counts[kind] += e.count
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+        out[name] = dict(counts, device_ms=us / 1e3 if seen else None)
+    return out
 
 
 def migration_times(card: str, cache, reps: int = 10) -> dict:
@@ -1178,6 +1397,15 @@ def serving_phases(card: str, launches: dict, phase_s: dict):
         print(f"[serve {prec}]", flush=True)
         serve[prec], counts, backend = serve_phase(card, prec, params)
         launches.update({k: counts[k] for k in SERVE_KERNELS[prec]})
+        if prec == "fp16":
+            serve[prec]["per_step"] = per = step_device_kernels(
+                backend.cfg, backend.params, backend.cache.k,
+                backend.cache.v)
+            for what, r in per.items():
+                print(f"  [{card}] one {what} under torch.profiler: "
+                      f"{r['kernels']} device kernels, {r['memcpy']} "
+                      f"copies, {r['memset']} memsets, device time "
+                      f"{r['device_ms']} ms", flush=True)
         migration[prec] = migration_times(card, backend.cache)
         params = backend.params
         backend.cache = None          # free the pools before the next phase
@@ -1239,6 +1467,9 @@ def main() -> int:
     tc = tc_resources(build.ptxas_report)
     for label, res in tc.items():
         print(f"  tensor cores: {label}: {res}", flush=True)
+    writes = tc_resources(build.ptxas_report, WRITE_KERNELS)
+    for label, res in writes.items():
+        print(f"  KV writes: {label}: {res}", flush=True)
 
     print("[kernels] main-path shapes, bf16 timings: ms is the kernel in a "
           "CUDA graph; eager, plain and library are eager calls on the same "
@@ -1268,7 +1499,8 @@ def main() -> int:
             library_ms=r["library_ms"],
             library_call=r["library_call"]))
         for extra in ("shape", "hymba", "ctx256", "splits", "vs_f64_f32",
-                      "vs_f64_bf16"):
+                      "vs_f64_bf16", "library_graph_ms", "mismatches_bf16",
+                      "mismatches_f32"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if "int8_vs_float_max_abs_err_bf16" in r:
@@ -1280,6 +1512,7 @@ def main() -> int:
     results = dict(card=card, device=kind, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,
                    total_s=total_s, phase_s=phase_s, ptxas_tc=tc,
+                   ptxas_writes=writes,
                    kernels=kernels,
                    serve=serve, migration=migration, families=families,
                    check=check)

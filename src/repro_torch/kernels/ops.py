@@ -15,7 +15,10 @@ card.
 The write wrappers (``kv_token_write``, ``kv_chunk_write``,
 ``block_scatter``, ``block_scatter_layers``,
 ``block_scatter_dequant_layers``) update the pools **in place** and
-return them.
+return them. ``rope_kv_token_write`` and ``rope_kv_chunk_write`` (the
+decode and prefill layers' RoPE of q and k fused into those two writes,
+one launch per layer) also write the pools in place, and return the
+roped q.
 
 ``launches[name]`` counts the kernel launches of each wrapper (CPU calls
 are not counted); ``reset_launches`` sets every count to 0.
@@ -33,7 +36,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as R
 
 KERNELS = ("kv_token_write", "paged_attention", "kv_chunk_write",
-           "paged_prefill_attention", "block_gather_layers",
+           "paged_prefill_attention", "rope_kv_token_write",
+           "rope_kv_chunk_write", "block_gather_layers",
            "block_scatter_layers", "block_gather_quant_layers",
            "block_scatter_dequant_layers", "kv_block_quant",
            "kv_block_dequant", "paged_attention_quant",
@@ -43,15 +47,22 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # queries per thread block of the float32 and int8-page prefill kernels
 PREFILL_Q_TILE = 4
+# largest head dim of the fused RoPE + KV write kernels (a block's shared
+# cos / sin table holds D floats)
+ROPE_MAX_HEAD_DIM = 1024
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
     ctypes.c_float
 _SIGNATURES = {
-    "kv_token_write": ("kv_write", [_P, _P, _P, _P, _P, _I64, _I64, _I64,
-                                    _P]),
+    "kv_token_write": ("kv_write", [_P, _P, _P, _P, _P, _I64, _I64, _I, _I,
+                                    _I, _P]),
     "kv_chunk_write": ("kv_write", [_P, _P, _P, _P, _P, _P, _P, _I64, _I,
-                                    _I, _I, _I64, _I64, _P]),
+                                    _I, _I, _I64, _I, _I, _I, _P]),
+    "rope_kv_token_write": ("kv_write", [_P] * 9 + [_I64, _I64, _I, _I, _I,
+                                                    _I, _P]),
+    "rope_kv_chunk_write": ("kv_write", [_P] * 11 + [_I64, _I, _I, _I, _I64,
+                                                     _I, _I, _I, _I, _P]),
     "block_gather_layers": ("block_copy", [_P, _P, _P, _I64, _I64, _I64,
                                            _I64, _P]),
     "block_scatter_layers": ("block_copy", [_P, _P, _P, _I64, _I64, _I64,
@@ -168,20 +179,64 @@ def _require(name: str, cond: bool, msg: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# decode: B1 kv_token_write, B2 paged_attention
+# decode: B1 kv_token_write (alone, and fused with the RoPE of q and k),
+# B2 paged_attention
 # ---------------------------------------------------------------------------
 
 def kv_token_write(k_pages, v_pages, k_new, v_new, slots):
     """Write one token's K/V per sequence into the pools, in place.
 
     k_pages/v_pages: (N, bs, Hkv, D); k_new/v_new: (B, Hkv, D) of the pool
-    dtype; slots: (B,) int32 absolute slot ids (block * bs + offset).
-    Returns (k_pages, v_pages).
+    dtype; slots: (B,) int32 absolute slot ids (block * bs + offset); slots
+    outside the pool are not written. Returns (k_pages, v_pages).
     """
     name = "kv_token_write"
     if _on_cpu(name, k_pages, v_pages, k_new, v_new, slots):
         return R.kv_token_write_ref(k_pages, v_pages, k_new, v_new, slots)
-    _check_pools(name, k_pages, v_pages)
+    code, n, bs, hkv, d = _check_token_write(name, k_pages, v_pages, k_new,
+                                             v_new, slots)
+    b = k_new.shape[0]
+    if b:
+        _launch(name, k_pages.device, k_pages.data_ptr(),
+                v_pages.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                slots.data_ptr(), b, n * bs, hkv, d, code)
+    return k_pages, v_pages
+
+
+def rope_kv_token_write(q, k, v, k_pages, v_pages, slots, positions, theta):
+    """The decode layer's RoPE and KV write in one launch: split-half RoPE
+    of q and k at ``positions`` in float32, rounded to the pool dtype, then
+    the roped k and v written at ``slots`` as :func:`kv_token_write` does
+    (pools updated in place).
+
+    q: (B, H, D); k/v: (B, Hkv, D), all of the pool dtype; pools
+    (N, bs, Hkv, D); slots, positions: (B,) int32; theta: the RoPE base.
+    D must be even. Returns the roped q, a new (B, H, D) tensor."""
+    name = "rope_kv_token_write"
+    if _on_cpu(name, q, k, v, k_pages, v_pages, slots, positions):
+        return R.rope_kv_token_write_ref(q, k, v, k_pages, v_pages, slots,
+                                         positions, theta)
+    code, n, bs, hkv, d = _check_token_write(name, k_pages, v_pages, k, v,
+                                             slots)
+    _check(name, "q", q, 3, k_pages.dtype)
+    _check(name, "positions", positions, 1, torch.int32)
+    b, h = q.shape[:2]
+    _require(name, q.shape == (b, h, d) and k.shape[0] == b
+             and positions.shape == (b,), "shape mismatch")
+    freqs = _rope_freqs(name, d, theta, q.device)
+    out = torch.empty_like(q)
+    if b:
+        _launch(name, q.device, q.data_ptr(), out.data_ptr(), k.data_ptr(),
+                v.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                slots.data_ptr(), positions.data_ptr(), freqs.data_ptr(), b,
+                n * bs, h, hkv, d, code)
+    return out
+
+
+def _check_token_write(name, k_pages, v_pages, k_new, v_new, slots):
+    """Pools, new K/V and slots of a decode write; returns (dtype code, N,
+    bs, Hkv, D)."""
+    code = _check_pools(name, k_pages, v_pages)
     n, bs, hkv, d = k_pages.shape
     _check(name, "k_new", k_new, 3, k_pages.dtype)
     _check(name, "v_new", v_new, 3, k_pages.dtype)
@@ -189,11 +244,21 @@ def kv_token_write(k_pages, v_pages, k_new, v_new, slots):
     b = k_new.shape[0]
     _require(name, k_new.shape == (b, hkv, d) and v_new.shape == k_new.shape
              and slots.shape == (b,), "shape mismatch")
-    if b:
-        _launch(name, k_pages.device, k_pages.data_ptr(),
-                v_pages.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                slots.data_ptr(), b, n * bs, hkv * d * k_pages.element_size())
-    return k_pages, v_pages
+    return code, n, bs, hkv, d
+
+
+@functools.lru_cache(maxsize=None)
+def rope_freqs(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The (D/2,) float32 RoPE frequencies on ``device``, computed once by
+    the plain version's torch expression, so the fused kernels and the
+    plain version on the card read identical frequencies."""
+    return R.rope_frequencies(d, theta, device)
+
+
+def _rope_freqs(name, d, theta, device):
+    _require(name, d % 2 == 0 and d <= ROPE_MAX_HEAD_DIM,
+             f"needs an even D <= {ROPE_MAX_HEAD_DIM}, got {d}")
+    return rope_freqs(d, float(theta), device)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
@@ -289,7 +354,8 @@ def _check_decode(name, q, pages, block_tables, context_lens):
 
 
 # ---------------------------------------------------------------------------
-# prefill: B3 kv_chunk_write, B4 paged_prefill_attention
+# prefill: B3 kv_chunk_write (alone, and fused with the RoPE of q and k),
+# B4 paged_prefill_attention
 # ---------------------------------------------------------------------------
 
 def kv_chunk_write(k_pages, v_pages, k_new, v_new, wpages, wstart, wcount):
@@ -298,14 +364,65 @@ def kv_chunk_write(k_pages, v_pages, k_new, v_new, wpages, wstart, wcount):
     k_pages/v_pages: (N, bs, Hkv, D); k_new/v_new: (B, C, Hkv, D) of the
     pool dtype; wpages: (B, PP) int32 destination pages of each row's write
     window in order; wstart: (B,) int32 in-page offset of the first token;
-    wcount: (B,) int32 valid tokens per row (later tokens are not written).
+    wcount: (B,) int32 valid tokens per row (later tokens are not written;
+    nor are tokens whose page lies outside the window or the pool).
     Returns (k_pages, v_pages).
     """
     name = "kv_chunk_write"
     if _on_cpu(name, k_pages, v_pages, k_new, v_new, wpages, wstart, wcount):
         return R.kv_chunk_write_ref(k_pages, v_pages, k_new, v_new, wpages,
                                     wstart, wcount)
-    _check_pools(name, k_pages, v_pages)
+    code, n, bs, hkv, d = _check_chunk_write(name, k_pages, v_pages, k_new,
+                                             v_new, wpages, wstart, wcount)
+    b, c = k_new.shape[:2]
+    if b and c:
+        _launch(name, k_pages.device, k_pages.data_ptr(),
+                v_pages.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                wpages.data_ptr(), wstart.data_ptr(), wcount.data_ptr(), b, c,
+                wpages.shape[1], bs, n * bs, hkv, d, code)
+    return k_pages, v_pages
+
+
+def rope_kv_chunk_write(q, k, v, k_pages, v_pages, wpages, wstart, wcount,
+                        positions, theta):
+    """The prefill layer's RoPE and KV write in one launch: split-half RoPE
+    of every token of q and k at ``positions`` in float32, rounded to the
+    pool dtype, then the roped k and v written through the row windows as
+    :func:`kv_chunk_write` does (pools updated in place).
+
+    q: (B, C, H, D); k/v: (B, C, Hkv, D), all of the pool dtype; pools,
+    wpages, wstart, wcount as in :func:`kv_chunk_write`; positions: (B, C)
+    int32 (padded queries at a clamped position, >= 0); theta: the RoPE
+    base. D must be even. Returns the roped q, a new (B, C, H, D) tensor:
+    every token, padded ones included."""
+    name = "rope_kv_chunk_write"
+    if _on_cpu(name, q, k, v, k_pages, v_pages, wpages, wstart, wcount,
+               positions):
+        return R.rope_kv_chunk_write_ref(q, k, v, k_pages, v_pages, wpages,
+                                         wstart, wcount, positions, theta)
+    code, n, bs, hkv, d = _check_chunk_write(name, k_pages, v_pages, k, v,
+                                             wpages, wstart, wcount)
+    _check(name, "q", q, 4, k_pages.dtype)
+    _check(name, "positions", positions, 2, torch.int32)
+    b, c, h = q.shape[:3]
+    _require(name, q.shape == (b, c, h, d) and k.shape[:2] == (b, c)
+             and positions.shape == (b, c), "shape mismatch")
+    freqs = _rope_freqs(name, d, theta, q.device)
+    out = torch.empty_like(q)
+    if b and c:
+        _launch(name, q.device, q.data_ptr(), out.data_ptr(), k.data_ptr(),
+                v.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                wpages.data_ptr(), wstart.data_ptr(), wcount.data_ptr(),
+                positions.data_ptr(), freqs.data_ptr(), b, c,
+                wpages.shape[1], bs, n * bs, h, hkv, d, code)
+    return out
+
+
+def _check_chunk_write(name, k_pages, v_pages, k_new, v_new, wpages, wstart,
+                       wcount):
+    """Pools, new K/V and windows of a chunk write; returns (dtype code, N,
+    bs, Hkv, D)."""
+    code = _check_pools(name, k_pages, v_pages)
     n, bs, hkv, d = k_pages.shape
     _check(name, "k_new", k_new, 4, k_pages.dtype)
     _check(name, "v_new", v_new, 4, k_pages.dtype)
@@ -317,12 +434,7 @@ def kv_chunk_write(k_pages, v_pages, k_new, v_new, wpages, wstart, wcount):
              and v_new.shape == k_new.shape and wpages.shape[0] == b
              and wstart.shape == (b,) and wcount.shape == (b,),
              "shape mismatch")
-    if b and c:
-        _launch(name, k_pages.device, k_pages.data_ptr(),
-                v_pages.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                wpages.data_ptr(), wstart.data_ptr(), wcount.data_ptr(), b, c,
-                wpages.shape[1], bs, n, hkv * d * k_pages.element_size())
-    return k_pages, v_pages
+    return code, n, bs, hkv, d
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_pos):

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the port's kernels: the serving path, the
-int8 host tier's quantize / dequantize kernels, attention over int8
-pools, the single-layer block copies, the Mamba2 SSD scan and
-sliding-window attention.
+"""Plain PyTorch versions of the port's kernels: the serving path (its
+two KV writes also fused with the RoPE of q and k, which the plain
+versions take from ``models.layers``), the int8 host tier's quantize /
+dequantize kernels, attention over int8 pools, the single-layer block
+copies, the Mamba2 SSD scan and sliding-window attention.
 
 Each function computes what its CUDA kernel in ``csrc/`` computes, with
 ordinary tensor ops and no tiling: a gather of every table page, an f32
@@ -29,6 +30,10 @@ from __future__ import annotations
 import math
 
 import torch
+
+# the model's RoPE, for the fused writes' plain versions (and the frequency
+# table of ops.rope_freqs)
+from repro_torch.models.layers import apply_rope, rope_frequencies
 
 NEG_INF = -1e30
 
@@ -161,6 +166,27 @@ def kv_chunk_write_ref(k_pages, v_pages, k_new, v_new, wpages, wstart,
     k_pages.view(n * bs, hkv, d)[slots] = k_new[live].to(k_pages.dtype)
     v_pages.view(n * bs, hkv, d)[slots] = v_new[live].to(v_pages.dtype)
     return k_pages, v_pages
+
+
+def rope_kv_token_write_ref(q, k, v, k_pages, v_pages, slots, positions,
+                            theta):
+    """The decode layer's RoPE and write: q (B, H, D) and k (B, Hkv, D)
+    roped at positions (B,) by the model's ``apply_rope``, then k and v
+    written at ``slots`` in place. Returns the roped q."""
+    k = apply_rope(k, positions, theta)
+    kv_token_write_ref(k_pages, v_pages, k, v, slots)
+    return apply_rope(q, positions, theta)
+
+
+def rope_kv_chunk_write_ref(q, k, v, k_pages, v_pages, wpages, wstart,
+                            wcount, positions, theta):
+    """The prefill layer's RoPE and write: q (B, C, H, D) and k
+    (B, C, Hkv, D) roped at positions (B, C) by the model's ``apply_rope``,
+    then k and v written through the row windows in place. Returns the
+    roped q."""
+    k = apply_rope(k, positions, theta)
+    kv_chunk_write_ref(k_pages, v_pages, k, v, wpages, wstart, wcount)
+    return apply_rope(q, positions, theta)
 
 
 def quantize_block_ref(x):

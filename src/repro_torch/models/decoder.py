@@ -5,9 +5,12 @@ and chunked suffix prefill, the serving path), and the dense-cache
 
 The counterparts of ``repro.models.decoder``. JAX scans the stacked layer
 params; here a Python loop walks the layers. On the paged path each
-layer's K/V kernels write that layer's slice of the pools **in place**, so
-no pool is ever copied; the dense cache of ``prefill`` is a dict of
-stacked (L, ...) tensors that ``decode_step`` updates in place:
+layer's RoPE of q and k and its K/V write are one kernel
+(``ops.rope_kv_token_write`` / ``ops.rope_kv_chunk_write``, where the JAX
+scan has XLA fuse the RoPE beside the Pallas write), which writes that
+layer's slice of the pools **in place**, so no pool is ever copied; the
+dense cache of ``prefill`` is a dict of stacked (L, ...) tensors that
+``decode_step`` updates in place:
 
     {"k", "v": (L, B, S, Hkv, D)}   (int8, plus "k_scale", "v_scale"
                                      (L, B, S, Hkv) float32 with
@@ -93,16 +96,15 @@ def paged_decode(cfg, stacked, x, k_pool, v_pool, tables, positions,
     slots:         (B,) int32 absolute write slot (scratch slot = masked)
     Returns hidden (B, 1, d).
     """
-    pos = positions[:, None]
     h = x
     for i in range(cfg.num_layers):
         lp = _layer(stacked, i)
         xn = L.rms_norm(h, lp["attn_norm"])
         q, k, v = L.qkv_project(cfg, lp, xn)
-        q = L.apply_rope(q, pos, cfg.rope_theta)
-        k = L.apply_rope(k, pos, cfg.rope_theta)
-        ops.kv_token_write(k_pool[i], v_pool[i], k[:, 0], v[:, 0], slots)
-        out = ops.paged_attention(q[:, 0], k_pool[i], v_pool[i], tables,
+        q = ops.rope_kv_token_write(q[:, 0], k[:, 0], v[:, 0], k_pool[i],
+                                    v_pool[i], slots, positions,
+                                    cfg.rope_theta)
+        out = ops.paged_attention(q, k_pool[i], v_pool[i], tables,
                                   attn_lens)
         h = h + L.attn_out(lp, out[:, None])
         h = _ffn(lp, h)
@@ -128,10 +130,8 @@ def paged_prefill(cfg, stacked, x, k_pool, v_pool, tables, q_pos,
         lp = _layer(stacked, i)
         xn = L.rms_norm(h, lp["attn_norm"])
         q, k, v = L.qkv_project(cfg, lp, xn)
-        q = L.apply_rope(q, pos, cfg.rope_theta)
-        k = L.apply_rope(k, pos, cfg.rope_theta)
-        ops.kv_chunk_write(k_pool[i], v_pool[i], k, v, wpages, wstart,
-                           wcount)
+        q = ops.rope_kv_chunk_write(q, k, v, k_pool[i], v_pool[i], wpages,
+                                    wstart, wcount, pos, cfg.rope_theta)
         out = ops.paged_prefill_attention(q, k_pool[i], v_pool[i], tables,
                                           q_pos)
         h = h + L.attn_out(lp, out)

@@ -14,6 +14,10 @@ attention (B15), whose window edges cut tiles too, and split-context
 decode over bf16 pools (B2) and int8 pages (B9), whose runs of tiles
 may be empty; bf16 head dims outside those kernels take the scalar
 kernels of B2, B9, B10 and B15.
+The decode and prefill writes fused with the RoPE of q and k are held
+to their plain versions bit for bit, or one step of the dtype (the count
+is printed), at the main path's shapes and at a head dim that takes the
+kernels' scalar path; pool rows they do not write stay bit for bit.
 Two cases run at Qwen2.5-14B's serve-pool size, where byte offsets pass
 2**31 and only 64-bit offset arithmetic gives the right blocks. The int8
 quantize and dequantize kernels are exact against their plain versions,
@@ -265,6 +269,188 @@ def test_kv_token_write_folded_serve_pool(dev):
     torch.cuda.synchronize()
     for g, w in zip(pools, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_kv_writes_scalar_path(dev, dt):
+    """B1 and B3 where 16-byte vectors do not fit: D 6 (not a multiple of
+    16 bytes in either dtype), then D 128 with new K/V that start one
+    element past a 16-byte boundary; a chunk of 10 tokens (runs of 8 and
+    2) over 4-token pages."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape):           # D 128: one element past a 16-byte boundary
+        if shape[-1] == 6:
+            return _rand(gen, shape, dt, dev)
+        return _rand(gen, (int(np.prod(shape)) + 1,), dt, dev)[1:] \
+            .view(shape)
+
+    for d in (6, 128):
+        n, bs, hkv, b, c = 12, 4, 2, 3, 10
+        pools = [_rand(gen, (n, bs, hkv, d), dt, dev) for _ in "kv"]
+        tok = [rand(b, hkv, d) for _ in "kv"]
+        new = [rand(b, c, hkv, d) for _ in "kv"]
+        sl = _ints([5, 13, (n - 1) * bs], dev)
+        want = [p.clone() for p in pools]
+        R.kv_token_write_ref(*want, *tok, sl)
+        ops.kv_token_write(*pools, *tok, sl)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(pools, want))
+        wp = _ints([[3, 4, 5, 11], [6, 7, 11, 11], [11, 11, 11, 11]], dev)
+        ws, wc = _ints([2, 0, 0], dev), _ints([c, 7, 0], dev)
+        R.kv_chunk_write_ref(*want, *new, wp, ws, wc)
+        ops.kv_chunk_write(*pools, *new, wp, ws, wc)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(pools, want))
+
+
+def _step(x, dtype):
+    """One step of ``dtype`` at each |x| (x float32): the gap to the next
+    representable value away from 0; the smallest subnormal step at 0."""
+    bits = {torch.float32: 23, torch.bfloat16: 7}[dtype]
+    _, e = torch.frexp(x.abs())
+    step = torch.ldexp(torch.ones_like(x), e - 1 - bits)
+    tiny = torch.finfo(dtype).tiny * 2.0 ** -bits
+    return torch.where(x == 0, torch.full_like(x, tiny), step)
+
+
+def _one_step(got, want):
+    """Asserts every element of ``got`` is ``want`` or one step of their
+    dtype away from it; returns the count of differing elements."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    step = torch.maximum(_step(g, got.dtype), _step(w, got.dtype))
+    assert bool((diff <= step).all()), float(diff.max())
+    return int((diff > 0).sum())
+
+
+def _rope_write_check(fn, plain, pools, written):
+    """Runs the fused kernel ``fn`` and its plain version ``plain`` (both
+    return the roped q) from the same pool snapshot. The roped q and the
+    pools may differ by one step (the count is returned); pool rows that
+    ``written`` (a bool mask over the (N * bs) slots) leaves out stay bit
+    for bit as they were."""
+    snap = [p.clone() for p in pools]
+    want_q = plain()
+    want = [p.clone() for p in pools]
+    for p, s in zip(pools, snap):
+        p.copy_(s)
+    got_q = fn()
+    torch.cuda.synchronize()
+    n_diff = _one_step(got_q, want_q)
+    for got, w, s in zip(pools, want, snap):
+        n_diff += _one_step(got, w)
+        flat, sflat = got.view(-1, *got.shape[2:]), s.view(-1, *s.shape[2:])
+        assert torch.equal(flat[~written], sflat[~written])
+        assert not torch.equal(flat[written], sflat[written])
+    return n_diff
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,d,theta", [
+    (8, 40, 8, 128, 1e6),        # Qwen2.5-14B decode
+    (3, 8, 2, 20, 1e4),          # D/2 = 10: the scalar path
+    (2, 4, 4, 8, 1e4),           # bf16 scalar, f32 16-byte vectors
+])
+def test_rope_kv_token_write(dev, dt, b, h, hkv, d, theta):
+    """The decode layer's fused RoPE and write against its plain version:
+    bit for bit, or one step of the dtype (the count is printed); the last
+    row padded into the scratch slot, which is left out of the check."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, bs = 4 * b + 1, 16
+    pools = [_rand(gen, (n, bs, hkv, d), dt, dev) for _ in "kv"]
+    q = _rand(gen, (b, h, d), dt, dev)
+    k, v = (_rand(gen, (b, hkv, d), dt, dev) for _ in "kv")
+    scratch = (n - 1) * bs
+    slots = np.random.default_rng(6).choice(scratch, b, replace=False)
+    slots[-1] = scratch
+    sl = _ints(slots, dev)
+    pos = _ints(np.random.default_rng(7).integers(0, 4097, b), dev)
+    written = torch.zeros(n * bs, dtype=torch.bool, device=dev)
+    written[sl[:-1].long()] = True
+    live = [p[:-1] for p in pools]        # the scratch page is left out
+    n_diff = _rope_write_check(
+        lambda: ops.rope_kv_token_write(q, k, v, *pools, sl, pos, theta),
+        lambda: R.rope_kv_token_write_ref(q, k, v, *pools, sl, pos, theta),
+        live, written[:scratch])
+    print(f"rope_kv_token_write {dt} D {d}: {n_diff} elements one step off")
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,c,h,hkv,d,bs,theta", [
+    (8, 32, 40, 8, 128, 16, 1e6),    # Qwen2.5-14B prefill chunk
+    (3, 10, 8, 2, 20, 4, 1e4),       # D/2 = 10: the scalar path
+])
+def test_rope_kv_chunk_write(dev, dt, b, c, h, hkv, d, bs, theta):
+    """The prefill layer's fused RoPE and write against its plain version:
+    windows that start mid-page and cross pages, short counts, the last row
+    padded (wcount = 0, q_pos = -1 clamped to 0); every query is roped."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rng = np.random.default_rng(8)
+    pp = (c - 1) // bs + 2
+    n = b * pp + 1
+    pools = [_rand(gen, (n, bs, hkv, d), dt, dev) for _ in "kv"]
+    q = _rand(gen, (b, c, h, d), dt, dev)
+    k, v = (_rand(gen, (b, c, hkv, d), dt, dev) for _ in "kv")
+    wpages = np.full((b, pp), n - 1)
+    wpages[:b - 1] = rng.permutation(b * pp)[:(b - 1) * pp].reshape(b - 1, pp)
+    starts = np.arange(b) % bs
+    counts = np.array([c - i for i in range(b - 1)] + [0])
+    qpos = np.zeros((b, c), np.int64)
+    for i in range(b - 1):
+        qpos[i] = rng.integers(0, 4097 - c) + np.arange(c)
+    written = torch.zeros(n * bs, dtype=torch.bool, device=dev)
+    for i in range(b - 1):
+        p = starts[i] + np.arange(counts[i])
+        written[torch.as_tensor(wpages[i, p // bs] * bs + p % bs)] = True
+    wp, ws, wc = (_ints(a, dev) for a in (wpages, starts, counts))
+    pos = _ints(qpos, dev)
+    n_diff = _rope_write_check(
+        lambda: ops.rope_kv_chunk_write(q, k, v, *pools, wp, ws, wc, pos,
+                                        theta),
+        lambda: R.rope_kv_chunk_write_ref(q, k, v, *pools, wp, ws, wc, pos,
+                                          theta),
+        [p[:-1] for p in pools], written[:(n - 1) * bs])
+    print(f"rope_kv_chunk_write {dt} D {d}: {n_diff} elements one step off")
+
+
+def test_rope_writes_launches_and_bad_inputs(dev):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    pools = [_rand(gen, (6, 16, 2, 64), "bf16", dev) for _ in "kv"]
+    q, k, v = (_rand(gen, s, "bf16", dev)
+               for s in ((2, 8, 64), (2, 2, 64), (2, 2, 64)))
+    qc, kc, vc = (_rand(gen, s, "bf16", dev)
+                  for s in ((2, 4, 8, 64), (2, 4, 2, 64), (2, 4, 2, 64)))
+    sl, pos = _ints([3, 40], dev), _ints([5, 9], dev)
+    wp, ws, wc = _ints([[1], [2]], dev), _ints([0, 3], dev), _ints([4, 2],
+                                                                    dev)
+    cpos = _ints([[0, 1, 2, 3], [7, 8, 0, 0]], dev)
+    ops.reset_launches()
+    out = ops.rope_kv_token_write(q, k, v, *pools, sl, pos, 1e4)
+    outc = ops.rope_kv_chunk_write(qc, kc, vc, *pools, wp, ws, wc, cpos, 1e4)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and outc.shape == qc.shape
+    assert ops.launches["rope_kv_token_write"] == 1
+    assert ops.launches["rope_kv_chunk_write"] == 1
+    assert not ops.launches["kv_token_write"]
+    assert not ops.launches["kv_chunk_write"]
+    with pytest.raises(TypeError):                  # q not the pool dtype
+        ops.rope_kv_token_write(q.float(), k, v, *pools, sl, pos, 1e4)
+    with pytest.raises(TypeError):                  # positions not int32
+        ops.rope_kv_token_write(q, k, v, *pools, sl, pos.long(), 1e4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rope_kv_chunk_write(qc.transpose(1, 2), kc, vc, *pools, wp, ws,
+                                wc, cpos, 1e4)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.rope_kv_chunk_write(qc, kc, vc, *pools, wp, ws, wc,
+                                cpos[:, :2].contiguous(), 1e4)
+    odd = [_rand(gen, (6, 16, 2, 63), "bf16", dev) for _ in "kv"]
+    with pytest.raises(ValueError, match="even D"):
+        ops.rope_kv_token_write(_rand(gen, (2, 8, 63), "bf16", dev),
+                                *(_rand(gen, (2, 2, 63), "bf16", dev)
+                                  for _ in "kv"), *odd, sl, pos, 1e4)
+    assert ops.launches["rope_kv_token_write"] == 1
+    assert ops.launches["rope_kv_chunk_write"] == 1
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

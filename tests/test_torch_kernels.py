@@ -18,6 +18,12 @@ oracles at the same 3e-5 (float32) / 2e-2 (bfloat16), and, like
 attention on the pools before quantization. The single-layer block
 copies are exact.
 
+The decode and prefill writes fused with the RoPE of q and k
+(``rope_kv_token_write``, ``rope_kv_chunk_write``) are held to the JAX
+model's ``apply_rope`` followed by the Pallas writes: float32 within 4
+ulps of the inputs' largest magnitude, bfloat16 within one bf16 step
+(``assert_rope_close`` says why), and the copied V exactly.
+
 The Mamba2 SSD scan is held to the Pallas kernel and to the JAX oracle's
 token-sequential recurrence at 2e-3 (``test_kernels.py``'s tolerance: the
 chunked and sequential sums run in different orders); sliding-window
@@ -617,6 +623,149 @@ def test_kv_chunk_write(dt):
     np.testing.assert_array_equal(npf(gv)[:-1], npf(wv)[:-1])
     # the spill really crossed pages: page 2 holds chunk tokens 1..4
     np.testing.assert_array_equal(npf(gk)[2], npf(tkn)[0, 1:5])
+
+
+# ---------------------------------------------------------------------------
+# B1 / B3 fused with the RoPE of q and k: against the JAX model's
+# apply_rope followed by the Pallas writes
+# ---------------------------------------------------------------------------
+
+def _step(a, bits):
+    """One step of a float with ``bits`` explicit mantissa bits at |a|."""
+    _, e = np.frexp(np.abs(np.asarray(a, np.float64)))
+    return np.ldexp(1.0, e - 1 - bits)
+
+
+def assert_rope_close(got, want, dt, scale):
+    """RoPE outputs of the port against JAX's on the CPU. float32: within
+    4 ulps of ``scale``, the inputs' largest magnitude: JAX's and torch's
+    CPU cos and sin (and, at D 128 and theta 1e6, one frequency) differ by
+    one ulp on some angles, which moves an output by about |x| ulps of 1.
+    bfloat16: within one bf16 step of the output, plus that float32 bound,
+    which only outputs below ~2**-12 can reach (there a float32 difference
+    spans several bf16 steps)."""
+    got, want = npf(got).astype(np.float64), npf(want).astype(np.float64)
+    bound = 4 * 2.0 ** -23 * scale
+    if dt == "bf16":
+        bound = bound + np.maximum(_step(got, 7), _step(want, 7))
+    bad = np.abs(got - want) > bound
+    assert not bad.any(), (f"{int(bad.sum())} of {bad.size} outside the "
+                           f"bound; max abs {np.abs(got - want).max():.3g}")
+
+
+def _jax_rope(x, pos, theta):
+    from repro.models import layers as JL
+    return JL.apply_rope(x, pos, theta)
+
+
+ROPE_SHAPES = [(16, 1e4), (64, 1e6), (128, 1e6)]     # (D, theta)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d,theta", ROPE_SHAPES)
+def test_rope_kv_token_write(dt, d, theta):
+    """Four live rows at positions 0, 4096 and two random ones, then two
+    padded rows into the scratch slot; G = 4."""
+    rng = np.random.default_rng(11)
+    n, bs, h, hkv, b = 9, 8, 8, 2, 6
+    scratch = (n - 1) * bs
+    x = [rng.standard_normal(s) for s in ((b, h, d), (b, hkv, d),
+                                          (b, hkv, d))]
+    (q, tq), (k, tk), (v, tv) = (pair(a, dt) for a in x)
+    kp, tkp = pair(rng.standard_normal((n, bs, hkv, d)), dt)
+    vp, tvp = pair(rng.standard_normal((n, bs, hkv, d)), dt)
+    live = rng.choice(scratch, b - 2, replace=False)
+    sl, tsl = ints(np.concatenate([live, [scratch, scratch]]))
+    positions = np.array([0, 4096, *rng.integers(1, 4096, b - 2)])
+    pos, tpos = ints(positions)
+    wq = _jax_rope(q[:, None], pos[:, None], theta)[:, 0]
+    wk, wv = jops.kv_token_write(
+        kp, vp, _jax_rope(k[:, None], pos[:, None], theta)[:, 0], v, sl)
+    got = ops.rope_kv_token_write(tq, tk, tv, tkp, tvp, tsl, tpos, theta)
+    scale = max(np.abs(a).max() for a in x)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    assert_rope_close(got, wq, dt, scale)
+    assert_rope_close(npf(tkp)[:-1], npf(wk)[:-1], dt, scale)
+    np.testing.assert_array_equal(npf(tvp)[:-1], npf(wv)[:-1])
+    # the pools really changed, and the inputs did not
+    assert not np.array_equal(npf(tkp)[:-1], npf(kp)[:-1])
+    np.testing.assert_array_equal(npf(tk), npf(k))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d,theta", ROPE_SHAPES)
+def test_rope_kv_chunk_write(dt, d, theta):
+    """Row 0 starts mid-page and crosses two page boundaries at positions
+    up to 4096; row 1 starts page-aligned with 3 tokens, the rest padded
+    queries (q_pos = -1, roped at position 0 after the clamp); row 2 is a
+    padded row (wcount = 0); row 3 starts mid-page with its last two
+    tokens padded."""
+    rng = np.random.default_rng(12)
+    n, bs, h, hkv, c = 14, 4, 4, 2, 10
+    scratch = n - 1
+    pp = (c - 1) // bs + 2
+    x = [rng.standard_normal(s) for s in ((4, c, h, d), (4, c, hkv, d),
+                                          (4, c, hkv, d))]
+    (q, tq), (k, tk), (v, tv) = (pair(a, dt) for a in x)
+    kp, tkp = pair(rng.standard_normal((n, bs, hkv, d)), dt)
+    vp, tvp = pair(rng.standard_normal((n, bs, hkv, d)), dt)
+    wpages = np.full((4, pp), scratch, np.int32)
+    wpages[0, :3] = [7, 2, 5]
+    wpages[1, :1] = [9]
+    wpages[3, :3] = [11, 0, 12]
+    wp, twp = ints(wpages)
+    ws, tws = ints([3, 0, 0, 1])
+    wc, twc = ints([c, 3, 0, c - 2])
+    qpos = np.full((4, c), -1)
+    qpos[0] = 4096 - c + 1 + np.arange(c)          # up to 4096
+    qpos[1, :3] = np.arange(3)
+    qpos[3, :c - 2] = 1001 + np.arange(c - 2)
+    pos, tpos = ints(np.maximum(qpos, 0))
+    wq, kr = _jax_rope(q, pos, theta), _jax_rope(k, pos, theta)
+    wk, wv = jops.kv_chunk_write(kp, vp, kr, v, wp, ws, wc)
+    got = ops.rope_kv_chunk_write(tq, tk, tv, tkp, tvp, twp, tws, twc, tpos,
+                                  theta)
+    scale = max(np.abs(a).max() for a in x)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    assert_rope_close(got, wq, dt, scale)        # every token, padded too
+    assert_rope_close(npf(tkp)[:-1], npf(wk)[:-1], dt, scale)
+    np.testing.assert_array_equal(npf(tvp)[:-1], npf(wv)[:-1])
+    # the spill crossed pages: page 2 holds row 0's tokens 1..4, roped
+    np.testing.assert_array_equal(npf(tvp)[2], npf(tv)[0, 1:5])
+    assert_rope_close(npf(tkp)[2], npf(kr)[0, 1:5], dt, scale)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rope_writes_equal_rope_then_write(dt):
+    """On the CPU each fused entry is exactly the model's apply_rope on q
+    and k followed by the standalone write: the decoder's old path."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator().manual_seed(0)
+    td = DTYPES[dt][1]
+    b, c, h, hkv, d, n, bs = 3, 5, 4, 2, 32, 8, 4
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(td)
+
+    q, k, v = rand(b, h, d), rand(b, hkv, d), rand(b, hkv, d)
+    pools = [rand(n, bs, hkv, d) for _ in "kv"]
+    want = [p.clone() for p in pools]
+    slots = torch.tensor([5, 17, 28], dtype=torch.int32)
+    pos = torch.tensor([3, 700, 0], dtype=torch.int32)
+    got_q = ops.rope_kv_token_write(q, k, v, *pools, slots, pos, 1e6)
+    ops.kv_token_write(*want, L.apply_rope(k, pos, 1e6), v, slots)
+    assert torch.equal(got_q, L.apply_rope(q, pos, 1e6))
+    assert all(torch.equal(g, w) for g, w in zip(pools, want))
+
+    q, k, v = rand(b, c, h, d), rand(b, c, hkv, d), rand(b, c, hkv, d)
+    wp = torch.tensor([[1, 2, 7], [3, 4, 7], [7, 7, 7]], dtype=torch.int32)
+    ws = torch.tensor([2, 0, 0], dtype=torch.int32)
+    wc = torch.tensor([c, 4, 0], dtype=torch.int32)
+    pos = torch.arange(c, dtype=torch.int32)[None].repeat(b, 1) * 9
+    got_q = ops.rope_kv_chunk_write(q, k, v, *pools, wp, ws, wc, pos, 1e4)
+    ops.kv_chunk_write(*want, L.apply_rope(k, pos, 1e4), v, wp, ws, wc)
+    assert torch.equal(got_q, L.apply_rope(q, pos, 1e4))
+    assert all(torch.equal(g, w) for g, w in zip(pools, want))
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

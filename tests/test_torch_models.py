@@ -105,6 +105,38 @@ def test_paged_prefill_step_and_head_match_jax(qkv_bias):
     np.testing.assert_allclose(_np(tlog), _np(jlog), **TOL)
 
 
+def test_paged_steps_take_one_fused_rope_write_per_layer(monkeypatch):
+    """The paged decode and prefill steps call the fused RoPE + KV write
+    once per layer and neither the standalone writes nor ``apply_rope``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    _, cfg, _, params, pools, rng = _setup(False)
+    calls = {}
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for mod, name in ((ops, "rope_kv_token_write"),
+                      (ops, "rope_kv_chunk_write"), (ops, "kv_token_write"),
+                      (ops, "kv_chunk_write"), (layers, "apply_rope")):
+        monkeypatch.setattr(mod, name, count(name, getattr(mod, name)))
+    tk, tv = (torch.from_numpy(p.copy()) for p in pools)
+    _, targs = _i32([1, 2], [[3, 4], [5, 6]], [7, 20], [8, 21],
+                    [3 * BS + 7, 6 * BS + 4])
+    M.paged_decode_step(cfg, params, tk, tv, *targs)
+    assert calls == {"rope_kv_token_write": cfg.num_layers}
+    calls.clear()
+    c = 4
+    _, targs = _i32(rng.integers(0, cfg.vocab_size, (2, c)), [[3, 4], [5, 6]],
+                    [np.arange(c), [-1] * c], [[3, NB], [NB, NB]], [0, 0],
+                    [c, 0])
+    M.paged_prefill_step(cfg, params, tk, tv, *targs)
+    assert calls == {"rope_kv_chunk_write": cfg.num_layers}
+
+
 def test_init_params_shapes_and_scales_match_jax():
     """Random init draws every leaf of the JAX pytree, with its shape,
     dtype and scale (weights differ: the two generators differ)."""

@@ -29,24 +29,46 @@ uncombined), at the main path's decode shape (q (8, 40, 128), 64-page
 tables, 7 rows of 1024 tokens, the last row padded) and at 256-token
 contexts through 16-page tables.
 
+The KV write kernels of ``kv_write.cu`` (B1, B3 and their RoPE-fused
+entries; one token per block) are timed at ``chip_smoke.py``'s bf16
+shapes with the block shape as it is (``base``: 16 head slots per block)
+and with 8 and 32 (``heads8``, ``heads32``); all are correct, and the
+fused entries' error against their plain versions is printed.
+
 ``--against DIR`` also builds ``DIR/paged_prefill.cu``,
-``DIR/swa_attention.cu`` and ``DIR/paged_attention.cu`` (for example the
-``csrc`` of a parent commit unpacked with ``git archive``) and times them
-and ``base`` in turns (other, base, base, other): bf16 B4, f32 B4 and
-bf16 B10 (int8 pages) at the main path's shape, bf16 B15 (sliding-window
-attention) at Hymba-1.5B's prefill shape, q/k/v (4, 2048, 25, 64) with a
-1024-token window, and bf16 B2, f32 B2 and bf16 B9 at the main path's
-decode shape, so two versions compare inside one run on one card (a
-``paged_attention.cu`` without the split-context entries runs its scalar
-kernel on bf16). Each build prints the ptxas registers, spills and static
-shared memory of its tensor-core kernels (D 128 for paged prefill and
-decode, D 64 for sliding-window attention). Exits 1 without a CUDA
+``DIR/swa_attention.cu``, ``DIR/paged_attention.cu`` and
+``DIR/kv_write.cu`` (for example the ``csrc`` of a parent commit unpacked
+with ``git archive``) and times them and ``base`` in turns (other, base,
+base, other): bf16 B4, f32 B4 and bf16 B10 (int8 pages) at the main
+path's shape, bf16 B15 (sliding-window attention) at Hymba-1.5B's
+prefill shape, q/k/v (4, 2048, 25, 64) with a 1024-token window, and bf16
+B2, f32 B2 and bf16 B9 at the main path's decode shape, so two versions
+compare inside one run on one card (a ``paged_attention.cu`` without the
+split-context entries runs its scalar kernel on bf16). Then the KV writes
+at ``chip_smoke.py``'s B1 / B3 shapes, bf16, in a CUDA graph and eagerly:
+B1 and B3 alone, and each layer's RoPE + write, which is one fused launch
+(``rope_kv_token_write`` / ``rope_kv_chunk_write``) where the build has
+the fused entries and, where it has not, torch's RoPE of q and of k
+followed by B1 / B3, as the decoder ran it before them (``kv_write.cu``'s
+C signatures before the fused entries are kept here for that). Last, it
+runs ``--steps`` on DIR's source tree (three levels above DIR) and on this
+one, each in its own process. Each build prints the ptxas registers,
+spills and static shared memory of its tensor-core kernels (D 128 for
+paged prefill and decode, D 64 for sliding-window attention) and of its
+bf16 KV write kernels.
+
+``--steps SRC`` imports ``repro_torch`` from the source tree SRC, builds
+Qwen2.5-14B at full width and depth (random bf16 weights from seed 0) with
+the serve phase's pools, and prints as one JSON line the device kernels of
+one ``paged_decode_step`` and one ``paged_prefill_step`` at the serve's
+shape (``chip_smoke.step_device_kernels``). Exits 1 without a CUDA
 device.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import math
 import re
 import subprocess
@@ -74,13 +96,25 @@ _COMPUTE_TO = ("\n#pragma unroll\n  for (int i = 0; i < 2; ++i) {\n"
 _TC_ENTRY = re.compile(r"Compiling entry function '(_Z\w*(?:"
                        r"paged_prefill_tc_kernelI\w*Li128E|"
                        r"paged_decode_tc_kernelI\w*Li128E|"
-                       r"swa_attention_tc_kernelILi64E)\w*)'")
+                       r"swa_attention_tc_kernelILi64E|"
+                       r"kv_(?:token|chunk)_write_kernelI13__nv_bfloat16Li8E)"
+                       r"\w*)'")
 # the decode kernel's warps per block, which the warps2 variant doubles,
 # and its combine launch, which no_combine removes
 _DC_WARPS = "constexpr int DC_WARPS = 1;"
 _DC_COMBINE = """  paged_decode_combine_kernel<<<(unsigned)(batch * H), D, 0, s>>>(
       part_o, part_ml, (__nv_bfloat16*)out, splits, D, scale_log2);
 """
+# kv_write.cu's C signatures before the fused RoPE entries (byte rows, no
+# dtype), for a build that lacks them
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# the KV write kernels' head slots per block, which the kvw variants change
+_KVW_HEADS = "constexpr int KVW_HEADS = 16;"
+KVW_VARIANTS = {f"heads{n}": (_KVW_HEADS, f"constexpr int KVW_HEADS = {n};")
+                for n in (8, 32)}
+_KVW_BYTES = {"kv_token_write": [_P] * 5 + [_I64, _I64, _I64, _P],
+              "kv_chunk_write": [_P] * 7 + [_I64, _I, _I, _I, _I64, _I64,
+                                            _P]}
 
 
 def variants(src: str, hdr: str) -> dict:
@@ -149,10 +183,10 @@ def case(b: int, p: int, dt):
                 kq=R.quantize_block_ref(kp), vq=R.quantize_block_ref(vp))
 
 
-def _bind(lib, name: str):
+def _bind(lib, name: str, argtypes=None):
     from repro_torch.kernels import ops
     fn = getattr(lib, name)
-    fn.argtypes = ops._SIGNATURES[name][1]       # the stream included
+    fn.argtypes = argtypes or ops._SIGNATURES[name][1]   # the stream too
     fn.restype = ctypes.c_int
     return fn
 
@@ -290,16 +324,209 @@ def swa_caller(lib, q, k, v, window: int):
     return _checked(_bind(lib, name), name, args), out
 
 
+def kvw_case():
+    """bf16 inputs of the decode and prefill KV writes as ``chip_smoke.py``
+    holds B1, B3 and their fused entries: B 8 rows over a (513, 16, 8, 128)
+    pool, the last two decode rows padded into the scratch slot; 32-token
+    windows starting at offset i of row i's first page, the last row
+    padded; q (8, 40, 128) and (8, 32, 40, 128); positions up to 4096."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import B, BS, C, D, H, HKV, P
+    from repro_torch.configs.base import get_config
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    def ints(x):
+        return torch.as_tensor(np.asarray(x, np.int32)).to(dev)
+
+    n = B * P + 1
+    scratch = (n - 1) * BS
+    slots = rng.choice(scratch, B, replace=False)
+    slots[-2:] = scratch
+    pp = (C - 1) // BS + 2
+    wpages = np.full((B, pp), n - 1)
+    wpages[:B - 1] = rng.permutation(B * P)[:(B - 1) * pp].reshape(B - 1, pp)
+    posc = np.zeros((B, C))
+    posc[:B - 1] = rng.integers(0, 4097 - C, B - 1)[:, None] + np.arange(C)
+    return dict(
+        kp=rand(n, BS, HKV, D), vp=rand(n, BS, HKV, D), q=rand(B, H, D),
+        k=rand(B, HKV, D), v=rand(B, HKV, D), slots=ints(slots),
+        pos=ints(rng.integers(0, 4097, B)), qc=rand(B, C, H, D),
+        kc=rand(B, C, HKV, D), vc=rand(B, C, HKV, D), wp=ints(wpages),
+        ws=ints(np.arange(B) % BS), wc=ints([C] * (B - 1) + [0]),
+        posc=ints(posc), theta=get_config("qwen2_5_14b_serving").rope_theta)
+
+
+def kvw_callers(lib, c: dict) -> dict:
+    """``{what: closure}`` over ``lib``'s KV writes on the inputs ``c``:
+    ``b1`` and ``b3`` alone, and the decode / prefill layer's RoPE + write
+    (``rope_b1`` / ``rope_b3``: the fused entry where ``lib`` has it, else
+    torch's RoPE of q and k, then ``lib``'s B1 / B3). The layer closures
+    return the roped q."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    kp, vp = c["kp"], c["vp"]
+    n, bs, hkv, d = kp.shape
+    b, h = c["q"].shape[:2]
+    ch, pp = c["qc"].shape[1], c["wp"].shape[1]
+    fused = hasattr(lib, "rope_kv_token_write")
+    sig = None if fused else _KVW_BYTES
+    tail1 = (hkv, d, 1) if fused else (hkv * d * 2,)
+    tail3 = (n * bs, hkv, d, 1) if fused else (n, hkv * d * 2)
+    b1 = _bind(lib, "kv_token_write", sig and sig["kv_token_write"])
+    b3 = _bind(lib, "kv_chunk_write", sig and sig["kv_chunk_write"])
+
+    def write1(k, v):
+        _checked(b1, "kv_token_write", (
+            kp.data_ptr(), vp.data_ptr(), k.data_ptr(), v.data_ptr(),
+            c["slots"].data_ptr(), b, n * bs, *tail1))()
+
+    def write3(k, v):
+        _checked(b3, "kv_chunk_write", (
+            kp.data_ptr(), vp.data_ptr(), k.data_ptr(), v.data_ptr(),
+            c["wp"].data_ptr(), c["ws"].data_ptr(), c["wc"].data_ptr(), b,
+            ch, pp, bs, *tail3))()
+
+    out = {"b1": lambda: write1(c["k"], c["v"]),
+           "b3": lambda: write3(c["kc"], c["vc"])}
+    if fused:
+        freqs = ops.rope_freqs(d, float(c["theta"]), kp.device)
+        f1 = _bind(lib, "rope_kv_token_write")
+        f3 = _bind(lib, "rope_kv_chunk_write")
+
+        def rope_b1():
+            q = torch.empty_like(c["q"])
+            _checked(f1, "rope_kv_token_write", (
+                c["q"].data_ptr(), q.data_ptr(), c["k"].data_ptr(),
+                c["v"].data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                c["slots"].data_ptr(), c["pos"].data_ptr(), freqs.data_ptr(),
+                b, n * bs, h, hkv, d, 1))()
+            return q
+
+        def rope_b3():
+            q = torch.empty_like(c["qc"])
+            _checked(f3, "rope_kv_chunk_write", (
+                c["qc"].data_ptr(), q.data_ptr(), c["kc"].data_ptr(),
+                c["vc"].data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                c["wp"].data_ptr(), c["ws"].data_ptr(), c["wc"].data_ptr(),
+                c["posc"].data_ptr(), freqs.data_ptr(), b, ch, pp, bs,
+                n * bs, h, hkv, d, 1))()
+            return q
+    else:
+        def rope_b1():
+            write1(R.apply_rope(c["k"], c["pos"], c["theta"]), c["v"])
+            return R.apply_rope(c["q"], c["pos"], c["theta"])
+
+        def rope_b3():
+            write3(R.apply_rope(c["kc"], c["posc"], c["theta"]), c["vc"])
+            return R.apply_rope(c["qc"], c["posc"], c["theta"])
+    out.update(rope_b1=rope_b1, rope_b3=rope_b3)
+    return out
+
+
+def kvw_want(c: dict) -> dict:
+    """The plain versions' roped q of the decode and prefill layer writes
+    on ``c`` (on copies of its pools)."""
+    from repro_torch.kernels import ref as R
+    return {"rope_b1": R.rope_kv_token_write_ref(
+                c["q"], c["k"], c["v"], c["kp"].clone(), c["vp"].clone(),
+                c["slots"], c["pos"], c["theta"]),
+            "rope_b3": R.rope_kv_chunk_write_ref(
+                c["qc"], c["kc"], c["vc"], c["kp"].clone(), c["vp"].clone(),
+                c["wp"], c["ws"], c["wc"], c["posc"], c["theta"])}
+
+
+def kvw_shapes(libs: dict) -> None:
+    """Each KV write of each block-shape variant ``libs`` in a CUDA graph;
+    the fused entries' roped q against the plain version's."""
+    import torch
+
+    from chip_smoke import graph_ms
+    c = kvw_case()
+    want = kvw_want(c)
+    for name, lib in libs.items():
+        calls = kvw_callers(lib, c)
+        times = {w: graph_ms(f) for w, f in calls.items()}
+        errs = {w: float((calls[w]().float() - want[w].float()).abs().max())
+                for w in want}
+        torch.cuda.synchronize()
+        print(f"  KV writes {name[4:]:8s} " + "  ".join(
+            f"{w.upper()} {ms:.5f} ms" for w, ms in times.items())
+              + f"; q max abs err {errs}", flush=True)
+
+
+def kvw_turns(libs: dict, other: str) -> None:
+    """The KV writes of ``libs[other]`` and ``libs["base"]`` in turns
+    (other, base, base, other), in a CUDA graph and eagerly; the layer
+    writes' roped q against the plain version's."""
+    import torch
+
+    from chip_smoke import cuda_ms, graph_ms
+    c = kvw_case()
+    calls = {n: kvw_callers(libs[n], c) for n in (other, "base")}
+    want = kvw_want(c)
+    for what in ("b1", "b3", "rope_b1", "rope_b3"):
+        order = (other, "base", "base", other)
+        graph = [graph_ms(calls[n][what]) for n in order]
+        eager = [cuda_ms(calls[n][what]) for n in order]
+        line = (f"  bf16 {what.upper()}: graph {other} {graph[0]:.5f} / "
+                f"{graph[3]:.5f} ms, base {graph[1]:.5f} / {graph[2]:.5f}; "
+                f"eager {other} {eager[0]:.5f} / {eager[3]:.5f}, base "
+                f"{eager[1]:.5f} / {eager[2]:.5f}")
+        if what in want:
+            errs = [float((calls[n][what]().float() - want[what].float())
+                          .abs().max()) for n in (other, "base")]
+            torch.cuda.synchronize()
+            line += (f"; q max abs err {other} {errs[0]:.3g}, base "
+                     f"{errs[1]:.3g}")
+        print(line, flush=True)
+
+
+def steps(src: str) -> int:
+    """``--steps``: the device kernels of one decode step and one prefill
+    chunk of Qwen2.5-14B with ``repro_torch`` from ``src``."""
+    import torch
+
+    from chip_smoke import BS, GPU_BLOCKS, step_device_kernels
+    sys.path.insert(0, str(Path(src).resolve()))   # ahead of this tree's src
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("qwen2_5_14b_serving")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    dt = params["embed"].dtype
+    shape = (cfg.num_layers, GPU_BLOCKS + 1, BS, cfg.num_kv_heads,
+             cfg.head_dim)
+    k, v = (torch.zeros(shape, dtype=dt, device="cuda") for _ in "kv")
+    print(json.dumps({"src": str(src),
+                      **step_device_kernels(cfg, params, k, v)}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", nargs="*", default=[],
-                    help="directories holding another paged_prefill.cu and "
-                         "swa_attention.cu")
+                    help="directories holding another paged_prefill.cu, "
+                         "swa_attention.cu, paged_attention.cu and "
+                         "kv_write.cu")
+    ap.add_argument("--steps", default=None, metavar="SRC",
+                    help="only count the device kernels of one decode step "
+                         "and one prefill chunk with repro_torch from SRC")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("prefill_breakdown: needs a CUDA device", file=sys.stderr)
         return 1
+    if args.steps:
+        return steps(args.steps)
     from chip_smoke import P, graph_ms, smi
     from repro_torch.kernels import ref as R
 
@@ -326,6 +553,15 @@ def main() -> int:
         (OUT / name).mkdir(parents=True, exist_ok=True)
         sources[name] = OUT / name / "paged_attention.cu"
         sources[name].write_text(cu)
+    kvw = (CSRC / "kv_write.cu").read_text()
+    sources["kvw_base"] = CSRC / "kv_write.cu"
+    for name, (old, new) in KVW_VARIANTS.items():
+        if old not in kvw:
+            raise SystemExit("prefill_breakdown: kv_write.cu no longer has "
+                             "the code a variant changes:\n" + old)
+        (OUT / f"kvw_{name}").mkdir(parents=True, exist_ok=True)
+        sources[f"kvw_{name}"] = OUT / f"kvw_{name}" / "kv_write.cu"
+        sources[f"kvw_{name}"].write_text(kvw.replace(old, new))
     others = [f"other{i}" for i in range(len(args.against))]
     if others:
         sources["swa_base"] = CSRC / "swa_attention.cu"
@@ -333,6 +569,7 @@ def main() -> int:
         sources[name] = Path(d).resolve() / "paged_prefill.cu"
         sources[f"swa_{name}"] = Path(d).resolve() / "swa_attention.cu"
         sources[f"dec_{name}"] = Path(d).resolve() / "paged_attention.cu"
+        sources[f"kvw_{name}"] = Path(d).resolve() / "kv_write.cu"
     libs = build_all(sources)
 
     bf16 = torch.bfloat16
@@ -362,6 +599,8 @@ def main() -> int:
                       f"{graph_ms(call):.4f} ms"
                       + (f"  max abs err {err:.3g}"
                          if name != "dec_no_combine" else ""), flush=True)
+    kvw_shapes({n: libs[n] for n in ("kvw_base", *(
+        f"kvw_{v}" for v in KVW_VARIANTS))})
     if others:
         sq, sk, sv, window = swa_case()
         swa_want = R.swa_attention_ref(sq, sk, sv, window)
@@ -399,6 +638,13 @@ def main() -> int:
                 line += (f"; max abs err {other} {errs[0]:.3g}, base "
                          f"{errs[1]:.3g}")
             print(line, flush=True)
+        kvw_turns({other: libs[f"kvw_{other}"], "base": libs["kvw_base"]},
+                  other)
+    for d in args.against:
+        for src in (Path(d).resolve().parents[2], ROOT / "src"):
+            print(f"[steps] {src}", flush=True)
+            subprocess.run([sys.executable, __file__, "--steps", str(src)],
+                           check=True, timeout=900)
     return 0
 
 

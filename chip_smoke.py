@@ -40,36 +40,53 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    B14 at Mamba2's shapes is also compared, with its plain version,
    against the plain version run in float64 on the card (both errors
    printed, ungated);
-4. serve fp16: four deep_research apps through the tokencake engine with
+4. step check: one bf16 ``paged_decode_step`` and one
+   ``paged_prefill_step`` (its last rows through ``head_logits``) at
+   Qwen2.5-14B's widths with 2 layers (random weights and pools from seed
+   0; B 8 rows of 256-token contexts through 16-page tables, a 32-token
+   chunk), run eagerly through the kernels and through their plain
+   versions, before any step is captured: the logits must agree within
+   four bf16 steps of the largest one, and the argmax on every row whose
+   top two logits are clearly apart (``STEP_REL``);
+5. serve fp16: four deep_research apps through the tokencake engine with
    ``TorchBackend`` at Qwen2.5-14B's full width and depth (48 layers,
    random bf16 weights from seed 0), a 2048-block device pool and a
-   1024-block pinned host pool; launch counts are zeroed just before and
-   read just after, and every kernel of the path (B2, B4, B5, B6 and the
-   RoPE + B1 / RoPE + B3 writes) must have run, the fused writes once per
-   layer of every decode step and prefill chunk and B1 / B3 alone never,
-   with at least one offload and no truncated prompt; then one decode step
-   and one prefill chunk at the serve's shape run under ``torch.profiler``,
-   which counts their device kernels, and the cache's offload and upload
-   of 32 blocks are timed;
-5. serve int8_host: the same apps on the same weights with
+   1024-block pinned host pool; the backend runs each padded step shape
+   as one CUDA graph (``models.graphs.StepGraphs``: a bucket's first call
+   runs the step eagerly once and captures it, every call replays it);
+   launch counts are zeroed just before and read just after, and every
+   kernel of the path (B2, B4, B5, B6 and the RoPE + B1 / RoPE + B3
+   writes) must have run, the fused writes once per layer of every
+   replayed and every warm-up decode step and prefill chunk and B1 / B3
+   alone never, with at least one offload and no truncated prompt; the
+   graphs captured per kind, the capture seconds and the peak memory are
+   printed; then the graph phase at the serve's shape on its weights and
+   pools: the replayed decode step and prefill chunk equal the eager ones
+   bit for bit (output and K/V), wall ms per step eager and replayed (20
+   synchronised calls each), the device's idle share over 10 decode steps
+   each way under ``torch.profiler``, and one step each way under the
+   profiler (device kernels, copies, memsets, host launch calls); and the
+   cache's offload and upload of 32 blocks are timed;
+6. serve int8_host: the same apps on the same weights with
    ``TemporalConfig(kv_precision="int8_host")``: offloads quantize on the
    card into an int8 pinned host pool, uploads dequantize on the card;
    the fused writes, B2, B4, B7 and B8 must have run (the same launch
    checks), with at least one offload and one upload and wire bytes in
    whole int8 blocks; then the same timing;
-6. families: Mamba2-130M (SSM) and Hymba-1.5B (hybrid: sliding-window
+7. families: Mamba2-130M (SSM) and Hymba-1.5B (hybrid: sliding-window
    attention beside SSM heads) at full width and depth, random bf16
    weights from seed 0, through ``models.model.prefill`` of 4 prompts of
-   2048 tokens and 32 greedy ``decode_step``s; launch counts are zeroed
-   just before and read just after, and the SSD scan (B14) must have run
-   once per layer, and for Hymba sliding-window attention (B15) too; the
-   logits must be finite; prefill and decode wall times, tokens per
-   second and peak memory are printed;
-7. check: a small float32 model served on the card gives the same tokens
-   and offloads as the same model on the CPU through the kernels' plain
-   versions, with an fp16 and with an int8 host tier; and small float32
-   Mamba2 and Hymba models give the same prefill and decode logits and
-   caches on the card as on the CPU (1e-4).
+   2048 tokens and 32 greedy ``decode_step``s (eager); launch counts are
+   zeroed just before and read just after, and the SSD scan (B14) must
+   have run once per layer, and for Hymba sliding-window attention (B15)
+   too; the logits must be finite; prefill and decode wall times, tokens
+   per second and peak memory are printed;
+8. check: a small float32 model served on the card (its steps replayed
+   from CUDA graphs) gives the same tokens and offloads as the same model
+   on the CPU (eager, through the kernels' plain versions), with an fp16
+   and with an int8 host tier; and small float32 Mamba2 and Hymba models
+   give the same prefill and decode logits and caches on the card as on
+   the CPU (1e-4).
 
 B9-B13b (``paged_attention_quant``, ``paged_prefill_attention_quant``,
 ``kv_block_quant``, ``kv_block_dequant``, ``block_gather``,
@@ -79,11 +96,11 @@ B1 and B3 alone (``kv_token_write``, ``kv_chunk_write``): the serve
 writes K/V through ``rope_kv_token_write`` and ``rope_kv_chunk_write``.
 B14 and B15 are held and timed in phase 3 at the families phase's shapes
 (B14 at Mamba2's and at Hymba's; bf16 B15 is its tensor-core kernel);
-their launches are those of phase 6.
+their launches are those of phase 7.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``. With ``--only
-kernels`` phases 4-7 are skipped and every launch count in that line is
+kernels`` phases 4-8 are skipped and every launch count in that line is
 the kernel phase's. ``--out PATH`` also writes the full results as JSON.
 Engine latencies in the serve report are virtual time from the A100 cost
 model, not card time.
@@ -273,13 +290,17 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
     """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
     graph and replayed ``reps`` times between two events, so the host's
-    cost of each launch is not in it."""
+    cost of each launch is not in it. The kernels' launches count once per
+    replay (``ops.capture_launches``)."""
     import torch
+
+    from repro_torch.kernels import ops
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with ops.capture_launches() as counts, torch.cuda.graph(g):
         for _ in range(iters):
             fn()
     g.replay()
+    ops.add_launches(counts, 1 + reps)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -895,7 +916,7 @@ def kernel_phase():
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 5: serve through the engine at Qwen2.5-14B's full size
+# phases 5 and 6: serve through the engine at Qwen2.5-14B's full size
 # ---------------------------------------------------------------------------
 
 def engine_cfg(EngineConfig, TemporalConfig, gpu_blocks, host_blocks,
@@ -932,7 +953,7 @@ def serve_phase(card: str, kv_precision: str, params=None):
     from repro_torch.data.workloads import build_workload
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import MCPFrontend
-    from repro_torch.models import model as M
+    from repro_torch.models import graphs as G
 
     n_apps = 4
     cfg = get_config("qwen2_5_14b_serving")
@@ -963,29 +984,15 @@ def serve_phase(card: str, kv_precision: str, params=None):
     submit(front, build_workload, n_apps, prompt_cap=CTX_SHORT,
            decode_cap=32)
 
-    # count the backend's decode steps and prefill chunks (the model-level
-    # entries it calls once per step / chunk) for the launch check
-    steps = {"paged_decode_step": 0, "paged_prefill_step": 0}
-    orig = {k: getattr(M, k) for k in steps}
-
-    def counted(name):
-        def call(*args, **kw):
-            steps[name] += 1
-            return orig[name](*args, **kw)
-        return call
-
-    for k in steps:
-        setattr(M, k, counted(k))
-    try:
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        eng.run(max_time=1e5)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(ops.launches)
-    finally:
-        for k, fn in orig.items():
-            setattr(M, k, fn)
+    # the backend's steps run as CUDA graphs: each bucket's first call
+    # runs the step eagerly once and captures it, then every call replays
+    sg = backend.steps
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eng.run(max_time=1e5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
     rep = front.report()
 
     assert rep["apps_finished"] == n_apps, rep["apps_finished"]
@@ -996,10 +1003,13 @@ def serve_phase(card: str, kv_precision: str, params=None):
     missing = [k for k in SERVE_KERNELS[kv_precision] if launches[k] <= 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     nl = cfg.num_layers
-    assert launches["rope_kv_token_write"] == \
-        steps["paged_decode_step"] * nl, (launches, steps)
-    assert launches["rope_kv_chunk_write"] == \
-        steps["paged_prefill_step"] * nl, (launches, steps)
+    steps = {k: sg.replays[k] for k in G.KINDS}
+    runs = {k: sg.replays[k] + sg.captures[k] for k in G.KINDS}
+    assert steps["decode"] > 0 and steps["prefill"] > 0, steps
+    assert launches["rope_kv_token_write"] == runs["decode"] * nl, \
+        (launches, runs)
+    assert launches["rope_kv_chunk_write"] == runs["prefill"] * nl, \
+        (launches, runs)
     assert launches["kv_token_write"] == launches["kv_chunk_write"] == 0, \
         "the serve wrote K/V through the standalone B1 / B3"
     bpb = A100_PCIE.block_bytes_for(kv_precision)
@@ -1022,8 +1032,9 @@ def serve_phase(card: str, kv_precision: str, params=None):
         d2h_bytes=rep["d2h_bytes"], h2d_bytes=rep["h2d_bytes"],
         engine_block_bytes=bpb, wall_s=wall, setup_s=setup_s,
         generated_tokens_per_wall_s=generated / wall,
-        decode_steps=steps["paged_decode_step"],
-        prefill_chunks=steps["paged_prefill_step"],
+        decode_steps=steps["decode"], prefill_chunks=steps["prefill"],
+        head_calls=steps["head"], graphs_captured=dict(sg.captures),
+        capture_s=sg.capture_s,
         max_memory_allocated_bytes=peak, launches=launches,
         virtual_avg_latency_s=rep["avg_latency"],
         virtual_p90_latency_s=rep["p90_latency"])
@@ -1036,67 +1047,273 @@ def serve_phase(card: str, kv_precision: str, params=None):
           f"{rep['h2d_bytes']} (engine's {kv_precision} block: {bpb} B); "
           f"engine latency (virtual time, A100 cost model, not card time) "
           f"avg {rep['avg_latency']:.1f} s", flush=True)
-    print(f"  {steps['paged_decode_step']} decode steps and "
-          f"{steps['paged_prefill_step']} prefill chunks of {nl} layers; "
+    print(f"  {steps['decode']} decode steps, {steps['prefill']} prefill "
+          f"chunks and {steps['head']} head calls of {nl} layers, replayed "
+          f"from CUDA graphs: {dict(sg.captures)} buckets captured in "
+          f"{sg.capture_s:.2f} s (each capture runs its step once eagerly); "
           f"launches on the main path: {launches}", flush=True)
     return out, launches, backend
 
 
+def step_inputs(cfg, nb: int):
+    """The int32 inputs (numpy) of one decode step and one prefill chunk at
+    the serve phases' shape: B 8 rows of 256-token contexts through 16-page
+    tables of blocks < ``nb`` (block ``nb`` is the scratch block); decode at
+    position 255, writing each row's last slot; a 32-token chunk at
+    positions 224-255, writing each row's last two pages."""
+    import numpy as np
+
+    p16 = CTX_SHORT // BS
+    rng = np.random.default_rng(0)
+    tables = rng.permutation(nb)[:B * p16].reshape(B, p16).astype(np.int32)
+
+    def i32(x):
+        return np.asarray(x, np.int32)
+
+    dec = (i32(rng.integers(0, cfg.vocab_size, B)), tables,
+           i32([CTX_SHORT - 1] * B), i32([CTX_SHORT] * B),
+           i32(tables[:, -1] * BS + BS - 1))
+    wpages = np.full((B, (C - 1) // BS + 2), nb, np.int32)
+    wpages[:, :2] = tables[:, -2:]
+    pre = (i32(rng.integers(0, cfg.vocab_size, (B, C))), tables,
+           i32(np.tile(CTX_SHORT - C + np.arange(C), (B, 1))), wpages,
+           i32([0] * B), i32([C] * B))
+    return dec, pre
+
+
+# the CUDA runtime and driver calls that put work on the card: kernel and
+# graph launches, copies and memsets (torch.profiler's host-side events)
+HOST_LAUNCHES = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync"}
+
+
 def step_device_kernels(cfg, params, k_pool, v_pool) -> dict:
     """One ``paged_decode_step`` and one ``paged_prefill_step`` at the serve
-    phases' shape (B 8 rows of 256-token contexts through 16-page tables;
-    a 32-token chunk at positions 224-255), each run once to warm up and
-    once under ``torch.profiler``: the device kernels, copies and memsets
-    it launched, and their summed device time (None if the profiler saw no
-    device event). Writes K/V into the pools' slots of those pages."""
-    import numpy as np
+    phases' shape (``step_inputs``), from numpy inputs as the backend calls
+    them, under ``torch.profiler``: eagerly, and, where
+    the source tree has ``models.graphs``, replayed from its CUDA graph
+    (``..._replayed``), each once to warm up and once under
+    ``device_profile``. Writes K/V into the pools' slots of those pages."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
 
     dev = k_pool.device
-    nb = k_pool.shape[1] - 1                 # the last block is scratch
-    p16 = CTX_SHORT // BS
-    rng = np.random.default_rng(0)
-    tables = rng.permutation(nb)[:B * p16].reshape(B, p16)
+    dec, pre = step_inputs(cfg, k_pool.shape[1] - 1)
 
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+    def t(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
 
-    dec = (t(rng.integers(0, cfg.vocab_size, B)), t(tables),
-           t([CTX_SHORT - 1] * B), t([CTX_SHORT] * B),
-           t(tables[:, -1] * BS + BS - 1))
-    wpages = np.full((B, (C - 1) // BS + 2), nb)
-    wpages[:, :2] = tables[:, -2:]
-    pre = (t(rng.integers(0, cfg.vocab_size, (B, C))), t(tables),
-           t(np.tile(CTX_SHORT - C + np.arange(C), (B, 1))), t(wpages),
-           t([0] * B), t([C] * B))
+    runs = {"decode_step": lambda: M.paged_decode_step(
+                cfg, params, k_pool, v_pool, *t(dec)),
+            "prefill_chunk": lambda: M.paged_prefill_step(
+                cfg, params, k_pool, v_pool, *t(pre))}
+    try:
+        from repro_torch.models import graphs as G
+    except ImportError:               # a source tree from before the graphs
+        G = None
+    if G is not None:
+        sg = G.StepGraphs(cfg, dev)
+        runs["decode_step_replayed"] = lambda: sg.decode(
+            params, k_pool, v_pool, *dec)
+        runs["prefill_chunk_replayed"] = lambda: sg.prefill(
+            params, k_pool, v_pool, *pre)
     out = {}
-    for name, fn in (
-            ("decode_step", lambda: M.paged_decode_step(
-                cfg, params, k_pool, v_pool, *dec)),
-            ("prefill_chunk", lambda: M.paged_prefill_step(
-                cfg, params, k_pool, v_pool, *pre))):
+    for name, fn in runs.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        counts = {"kernels": 0, "memcpy": 0, "memset": 0}
-        us, seen = 0.0, False
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            seen = True
-            kind = ("memcpy" if e.key.startswith("Memcpy") else
-                    "memset" if e.key.startswith("Memset") else "kernels")
-            counts[kind] += e.count
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0))
-        out[name] = dict(counts, device_ms=us / 1e3 if seen else None)
+        out[name] = device_profile(fn, top=0)
+    return out
+
+
+def wall_ms(fn, n: int = 20) -> dict:
+    """Host wall ms of ``fn`` ending in a synchronise, after one warm-up
+    call: median, mean, min and max of ``n`` calls, and all of them."""
+    import numpy as np
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(median=float(np.median(times)), mean=float(np.mean(times)),
+                min=min(times), max=max(times), calls=n, all=times)
+
+
+def graph_phase(card: str, cfg, params, k_pool, v_pool) -> dict:
+    """The compiled steps at the serve's shape, on the serve's weights and
+    pools (``step_inputs``): the replayed decode step and prefill chunk
+    give the eager step's output and K/V bit for bit (first call: warm-up,
+    capture and replay; second call: replay alone); wall ms per step,
+    eager against replayed, host time included; the device's idle share
+    over 10 replayed decode steps, each read to the host as the serve reads
+    its argmax, under ``torch.profiler``; and the device kernels and host
+    launch calls of one step each way (``step_device_kernels``)."""
+    import torch
+
+    from repro_torch.models import graphs as G
+
+    dec, pre = step_inputs(cfg, k_pool.shape[1] - 1)
+    eager, sg = G.EagerSteps(cfg), G.StepGraphs(cfg, k_pool.device)
+    blocks = torch.as_tensor(dec[1].ravel().astype("int64"),
+                             device=k_pool.device)
+
+    def written():
+        return [pool[:, blocks].clone() for pool in (k_pool, v_pool)]
+
+    out = {}
+    for name, kind, args in (("decode_step", "decode", dec),
+                             ("prefill_chunk", "prefill", pre)):
+        want = getattr(eager, kind)(params, k_pool, v_pool, *args).clone()
+        want_kv = written()
+        t0 = time.perf_counter()
+        first = getattr(sg, kind)(params, k_pool, v_pool, *args).clone()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first_kv = written()
+        again = getattr(sg, kind)(params, k_pool, v_pool, *args)
+        torch.cuda.synchronize()
+        for what, got in (("first call", first), ("replay", again)):
+            assert torch.equal(got, want), \
+                (f"{name}: {what} differs from the eager step, max abs "
+                 f"{float((got.float() - want.float()).abs().max())}")
+        for g, w in zip(first_kv + written(), want_kv * 2):
+            assert torch.equal(g, w), f"{name}: K/V differ from the eager step"
+        out[name] = dict(
+            bitwise_equal=True, first_call_s=first_s,
+            eager_wall_ms=wall_ms(lambda: getattr(eager, kind)(
+                params, k_pool, v_pool, *args)),
+            replayed_wall_ms=wall_ms(lambda: getattr(sg, kind)(
+                params, k_pool, v_pool, *args)))
+        print(f"  [{card}] {name}: replay = eager step bit for bit (output "
+              f"and K/V); first call (warm-up, capture, replay) "
+              f"{first_s * 1e3:.1f} ms; wall per call eager "
+              f"{out[name]['eager_wall_ms']['median']:.3f} ms, replayed "
+              f"{out[name]['replayed_wall_ms']['median']:.3f} ms (median of "
+              f"20, synchronised)", flush=True)
+
+    def ten(steps):
+        def run():
+            for _ in range(10):
+                lg = steps.decode(params, k_pool, v_pool, *dec)
+                torch.argmax(lg, dim=-1).cpu()
+        return run
+
+    for label, steps in (("replayed", sg), ("eager", eager)):
+        w = wall_ms(ten(steps), n=3)["median"]
+        pr = device_profile(ten(steps))
+        pr["unprofiled_wall_ms"] = w
+        pr["device_idle_share"] = (None if pr["device_ms"] is None
+                                   else 1.0 - pr["device_ms"] / w)
+        out[f"ten_decode_steps_{label}"] = pr
+        print(f"  [{card}] 10 {label} decode steps (argmax read each step):"
+              f" device busy {pr['device_ms']} ms of {w:.2f} ms wall, idle "
+              f"share {pr['device_idle_share']}", flush=True)
+    out["per_step"] = per = step_device_kernels(cfg, params, k_pool, v_pool)
+    for what, r in per.items():
+        print(f"  [{card}] one {what} under torch.profiler: {r['kernels']} "
+              f"device kernels, {r['memcpy']} copies, {r['memset']} memsets, "
+              f"device time {r['device_ms']} ms; host launch calls "
+              f"{r['host_launches']}", flush=True)
+    out["graphs"] = dict(captures=sg.captures, capture_s=sg.capture_s)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: one bf16 step at Qwen2.5-14B's widths, kernels against plain
+# ---------------------------------------------------------------------------
+
+# the plain version of each kernel entry the paged steps call
+STEP_PLAIN = {"rope_kv_token_write": "rope_kv_token_write_ref",
+              "paged_attention": "paged_attention_ref",
+              "rope_kv_chunk_write": "rope_kv_chunk_write_ref",
+              "paged_prefill_attention": "paged_prefill_attention_ref"}
+# a step through the kernels against the same step through their plain
+# versions: the two differ only in the attention kernels, by at most one
+# bf16 step of each output (TOL); two layers of bf16 products, norms and
+# the head carry that into the hidden states and logits by a few steps,
+# so each output must lie within four bf16 steps of the largest one
+# (2**-5 of max |plain|); the argmax must agree on every row whose top
+# two plain logits are further apart than twice that
+STEP_LAYERS, STEP_REL = 2, 2.0 ** -5
+
+
+def step_check(card: str) -> dict:
+    """One bf16 ``paged_decode_step`` and one ``paged_prefill_step`` (its
+    last rows through ``head_logits``) of Qwen2.5-14B at 2 layers, random
+    weights from seed 0, random bf16 pools, at the serve's shape
+    (``step_inputs``), eagerly through the kernels and through their plain
+    versions (``STEP_PLAIN``, swapped into ``ops`` for this check only),
+    each from the same pools."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("qwen2_5_14b_serving"),
+                              num_layers=STEP_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, "cuda")
+    nb = B * (CTX_SHORT // BS)
+    shape = (cfg.num_layers, nb + 1, BS, cfg.num_kv_heads, cfg.head_dim)
+    pools = [torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in "kv"]
+    dec, pre = step_inputs(cfg, nb)
+
+    def t(arrays):
+        return [torch.from_numpy(a).cuda() for a in arrays]
+
+    steps = {
+        "decode_step": lambda: M.paged_decode_step(cfg, params, *pools,
+                                                   *t(dec)),
+        "prefill_chunk": lambda: M.head_logits(
+            cfg, params, M.paged_prefill_step(cfg, params, *pools,
+                                              *t(pre))[:, -1])}
+    out = {}
+    for name, fn in steps.items():
+        snap = [p.clone() for p in pools]
+        got = fn().float()
+        for p, s in zip(pools, snap):
+            p.copy_(s)
+        kernels = {k: getattr(ops, k) for k in STEP_PLAIN}
+        try:
+            for k, plain in STEP_PLAIN.items():
+                setattr(ops, k, getattr(R, plain))
+            want = fn().float()
+        finally:
+            for k, f in kernels.items():
+                setattr(ops, k, f)
+        for p, s in zip(pools, snap):
+            p.copy_(s)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), name
+        err = float((got - want).abs().max())
+        tol = STEP_REL * float(want.abs().max())
+        top2 = want.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        agree = got.argmax(-1) == want.argmax(-1)
+        out[name] = dict(max_abs_err=err, tol=tol,
+                         max_abs_logit=float(want.abs().max()),
+                         argmax_agree_rows=int(agree.sum()),
+                         rows=int(agree.numel()),
+                         clear_rows=int(clear.sum()))
+        print(f"  [{card}] bf16 {name}, {cfg.num_layers} layers at Qwen2.5-"
+              f"14B's widths, kernels vs plain versions: logits max abs err "
+              f"{err:.4g} (tolerance {tol:.4g}, max |logit| "
+              f"{out[name]['max_abs_logit']:.4g}); argmax agrees on "
+              f"{int(agree.sum())} of {agree.numel()} rows ({int(clear.sum())}"
+              f" rows with a clear top logit)", flush=True)
+        assert err <= tol, (name, err, tol)
+        assert bool(agree[clear].all()), f"{name}: argmax differs"
     return out
 
 
@@ -1107,7 +1324,6 @@ def migration_times(card: str, cache, reps: int = 10) -> dict:
     each, every call ending in a synchronise. Wire bytes are what crosses
     PCIe: the pools' bytes, or the int8 payload plus its scales."""
     import numpy as np
-    import torch
 
     nb = cache.num_blocks + 1
     ids = np.concatenate([[nb - 1, nb - 2], np.random.default_rng(0).choice(
@@ -1120,27 +1336,20 @@ def migration_times(card: str, cache, reps: int = 10) -> dict:
     out = {"blocks": M_BLOCKS, "wire_bytes": wire, "reps": reps}
     for op, fn in (("offload", lambda: cache.offload(ids, host)),
                    ("upload", lambda: cache.upload(host, ids))):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        ms = float(np.median(times))
+        w = wall_ms(fn, n=reps)
+        ms = w["median"]
         out[op] = dict(ms_per_call=ms, ms_per_block=ms / M_BLOCKS,
-                       wire_gb_per_s=wire / ms / 1e6, all_ms=times)
+                       wire_gb_per_s=wire / ms / 1e6, all_ms=w["all"])
         print(f"  [{card}] {cache.host_precision} {op} of {M_BLOCKS} "
               f"blocks: {ms:.3f} ms per call (median of {reps}; "
-              f"{min(times):.3f}-{max(times):.3f}), {ms / M_BLOCKS:.4f} ms "
+              f"{w['min']:.3f}-{w['max']:.3f}), {ms / M_BLOCKS:.4f} ms "
               f"per block, {wire} wire bytes at {wire / ms / 1e6:.2f} GB/s",
               flush=True)
     return out
 
 
 # ---------------------------------------------------------------------------
-# phase 6: Mamba2-130M and Hymba-1.5B prefill and decode at full size
+# phase 7: Mamba2-130M and Hymba-1.5B prefill and decode at full size
 # ---------------------------------------------------------------------------
 
 def family_run(cfg, params, tokens, steps: int):
@@ -1176,10 +1385,11 @@ def device_profile(fn, top: int = 8) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity)
     and return its wall ms (profiler overhead included), the summed device
     time of its device-side events (kernels, copies, memsets; one stream,
-    so their busy time) and the ``top`` of them by device time. CPU-side
-    operator rows, which also carry their kernels' device time, are not
-    counted. A profiler that records no device event gives ``device_ms:
-    None`` (not measured)."""
+    so their busy time), their counts by kind, the host calls of
+    ``HOST_LAUNCHES`` that put them on the card, and the ``top`` of them
+    by device time. CPU-side operator rows, which also carry their
+    kernels' device time, are not counted. A profiler that records no
+    device event gives ``device_ms: None`` (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1190,10 +1400,17 @@ def device_profile(fn, top: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
+    counts = {"kernels": 0, "memcpy": 0, "memset": 0, "host_launches": 0}
+    rows, seen = [], False
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
+            if e.key in HOST_LAUNCHES:
+                counts["host_launches"] += e.count
             continue
+        seen = True
+        counts["memcpy" if e.key.startswith("Memcpy") else
+               "memset" if e.key.startswith("Memset") else
+               "kernels"] += e.count
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -1201,7 +1418,8 @@ def device_profile(fn, top: int = 8) -> dict:
             rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     dev = sum(r[0] for r in rows)
-    return dict(profiled_wall_ms=wall, device_ms=dev if rows else None,
+    return dict(counts, profiled_wall_ms=wall,
+                device_ms=dev if seen else None,
                 top=[dict(name=k[:80], device_ms=ms, calls=n)
                      for ms, k, n in rows[:top]])
 
@@ -1295,7 +1513,7 @@ def families_phase(card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: small models on the card equal the same models on the CPU
+# phase 8: small models on the card equal the same models on the CPU
 # ---------------------------------------------------------------------------
 
 def family_check():
@@ -1372,24 +1590,41 @@ def check_phase():
                    decode_cap=8)
             rep = eng.run(max_time=5000)
             runs[dev] = (rep, backend.generated)
+        # the card's steps were replays of CUDA graphs
+        replays = backend.steps.replays
+        assert replays["decode"] > 0 and replays["prefill"] > 0, replays
         (rc, gc), (rg, gg) = runs["cpu"], runs["cuda"]
         assert rg["offloads"] >= 1 and rg["offloads"] == rc["offloads"]
         assert rg["uploads"] == rc["uploads"]
         assert gg == gc, f"{prec}: tokens on the card differ from the CPU"
         n = sum(len(t) for t in gg.values())
         print(f"  tiny-f32 {prec}: {n} tokens of {len(gg)} requests "
-              f"identical on the card and on the CPU, offloads "
-              f"{rg['offloads']}, uploads {rg['uploads']}", flush=True)
+              f"identical on the card (steps replayed from CUDA graphs: "
+              f"{replays}; buckets {backend.steps.captures}) and on the CPU "
+              f"(eager), offloads {rg['offloads']}, uploads {rg['uploads']}",
+              flush=True)
         result[prec] = dict(requests=len(gg), tokens=n,
-                            offloads=rg["offloads"], uploads=rg["uploads"])
+                            offloads=rg["offloads"], uploads=rg["uploads"],
+                            replays=dict(replays))
     return result
 
 
 def serving_phases(card: str, launches: dict, phase_s: dict):
-    """Phases 4-7: the two serve phases, the families phase and the check
-    phase. Adds their launch counts to ``launches`` and their wall times to
-    ``phase_s``; returns (serve, migration, families, check)."""
+    """Phases 4-8: the bf16 step check, the two serve phases (the graph
+    phase after the first), the families phase and the check phase. Adds
+    their launch counts to ``launches`` and their wall times to
+    ``phase_s``; returns (step check, serve, migration, families,
+    check)."""
     import torch
+
+    t0 = time.perf_counter()
+    print(f"[step check] bf16, Qwen2.5-14B's widths, {STEP_LAYERS} layers: "
+          f"each step through the kernels and through their plain versions",
+          flush=True)
+    checked = step_check(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["step_check"] = time.perf_counter() - t0
 
     serve, migration, params = {}, {}, None
     for prec in ("fp16", "int8_host"):
@@ -1398,14 +1633,11 @@ def serving_phases(card: str, launches: dict, phase_s: dict):
         serve[prec], counts, backend = serve_phase(card, prec, params)
         launches.update({k: counts[k] for k in SERVE_KERNELS[prec]})
         if prec == "fp16":
-            serve[prec]["per_step"] = per = step_device_kernels(
-                backend.cfg, backend.params, backend.cache.k,
+            print("[graphs] the compiled steps at the serve's shape, on its "
+                  "weights and pools", flush=True)
+            serve[prec]["graphs"] = graph_phase(
+                card, backend.cfg, backend.params, backend.cache.k,
                 backend.cache.v)
-            for what, r in per.items():
-                print(f"  [{card}] one {what} under torch.profiler: "
-                      f"{r['kernels']} device kernels, {r['memcpy']} "
-                      f"copies, {r['memset']} memsets, device time "
-                      f"{r['device_ms']} ms", flush=True)
         migration[prec] = migration_times(card, backend.cache)
         params = backend.params
         backend.cache = None          # free the pools before the next phase
@@ -1428,7 +1660,7 @@ def serving_phases(card: str, launches: dict, phase_s: dict):
     print("[check]", flush=True)
     check = check_phase()
     check["families"] = family_check()
-    return serve, migration, families, check
+    return checked, serve, migration, families, check
 
 
 def main() -> int:
@@ -1480,11 +1712,11 @@ def main() -> int:
 
     if args.only == "kernels":
         launches = dict(ops.launches)
-        serve = migration = families = check = None
+        checked = serve = migration = families = check = None
     else:
         launches = {k: ops.launches[k] for k in KERNEL_PHASE_ONLY}
-        serve, migration, families, check = serving_phases(card, launches,
-                                                           phase_s)
+        checked, serve, migration, families, check = serving_phases(
+            card, launches, phase_s)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1513,7 +1745,7 @@ def main() -> int:
                    cuda=torch.version.cuda, build_s=build_s,
                    total_s=total_s, phase_s=phase_s, ptxas_tc=tc,
                    ptxas_writes=writes,
-                   kernels=kernels,
+                   kernels=kernels, step_check=checked,
                    serve=serve, migration=migration, families=families,
                    check=check)
     if args.out:

@@ -7,13 +7,16 @@ discrete-event simulation). ``TorchBackend`` runs the model in PyTorch
 against a real paged KV cache, on the card through the CUDA kernels of
 ``repro_torch.kernels``, and moves offloaded KV to pinned host memory and
 back. It is the counterpart of ``repro.core.backend.JaxBackend`` for dense
-archs without a sliding window. ``TemporalConfig(kv_precision=
+archs without a sliding window. On the card each padded step shape runs
+as one CUDA graph (``models.graphs.StepGraphs``, the counterpart of the
+JAX backend's jitted steps); on the CPU the steps run eagerly. ``TemporalConfig(kv_precision=
 "int8_host")`` gives the cache an int8 host tier: ``copy_out`` and
 ``offload_blocks`` quantize on the card before the D2H copy, ``copy_in``
 and ``promote_blocks`` dequantize on the card after the H2D copy.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Dict, List, Optional, Tuple
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.kvcache.paged import PagedKVCache
+from repro_torch.models import graphs as G
 from repro_torch.models import model as M
 
 
@@ -63,12 +67,14 @@ def _bucket(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
 
-def _to(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(a).to(device)
-
-
-def paged_prefill_chunks(cfg, params, cache, entries, chunk: int = 32):
+def paged_prefill_chunks(step, cache, entries, chunk: int = 32):
     """Chunked, bucketed, batched suffix-only paged prefill.
+
+    ``step(tokens, tables, q_pos, wpages, wstart, wcount)`` runs one chunk
+    from int32 numpy inputs and returns its hidden states (the prefill of
+    ``models.graphs.EagerSteps`` or ``StepGraphs`` with the params and
+    pools bound); a replayed graph returns the same static output every
+    call, so the rows kept here are copies.
 
     ``entries``: list of (blocks, tokens, cached) per request: the block
     table, the full target cache-token list, and the leading token count
@@ -83,14 +89,12 @@ def paged_prefill_chunks(cfg, params, cache, entries, chunk: int = 32):
     s_max = max((len(s) for s in suffix), default=0)
     if s_max == 0:
         return last_h
-    dev = cache.device
     bs = cache.block_size
     bb = _bucket(len(entries))
     pb = _bucket(max(len(blocks) for blocks, _, _ in entries))
     tables = np.zeros((bb, pb), np.int32)
     for i, (blocks, _, _) in enumerate(entries):
         tables[i, :len(blocks)] = blocks
-    ttables = _to(tables, dev)
     C = min(chunk, _bucket(s_max))
     pp = (C - 1) // bs + 2      # max pages a C-token window can straddle
     for c0 in range(0, s_max, C):
@@ -108,13 +112,10 @@ def paged_prefill_chunks(cfg, params, cache, entries, chunk: int = 32):
             wpages[i], wstart[i] = cache.write_window(
                 blocks, cached + c0, n, pp)
             wcount[i] = n
-        h = M.paged_prefill_step(
-            cfg, params, cache.k, cache.v, _to(tok, dev), ttables,
-            _to(qpos, dev), _to(wpages, dev), _to(wstart, dev),
-            _to(wcount, dev))
+        h = step(tok, tables, qpos, wpages, wstart, wcount)
         for i, s in enumerate(suffix):
             if c0 <= len(s) - 1 < c0 + C:
-                last_h[i] = h[i, len(s) - 1 - c0]
+                last_h[i] = h[i, len(s) - 1 - c0].clone()
     return last_h
 
 
@@ -127,7 +128,9 @@ class TorchBackend:
     paged-attention kernel, no per-request Python in the write or attend
     path. Runs on ``device`` ("cuda" unless the caller asks for "cpu");
     ``params`` overrides the weights drawn from ``seed`` (the tests pass
-    weights converted from the JAX backend).
+    weights converted from the JAX backend). ``steps`` runs the decode
+    step, the prefill chunk and the head: one CUDA graph per padded shape
+    on the card (``StepGraphs``), eagerly on the CPU (``EagerSteps``).
     """
 
     def __init__(self, cfg, engine_cfg, platform, seed: int = 0,
@@ -170,6 +173,8 @@ class TorchBackend:
         self.last_prefill_logits: Dict[str, np.ndarray] = {}
         # suffix tokens per prefill step (bucketed)
         self.prefill_chunk = 32
+        self.steps = (G.StepGraphs(cfg, device) if device.type == "cuda"
+                      else G.EagerSteps(cfg))
 
     # -- engine hooks ----------------------------------------------------------
     def decode(self, reqs):
@@ -270,7 +275,8 @@ class TorchBackend:
         bs = self.block_tokens
         items = [(r, *self._prefill_tokens(r)) for r in reqs]
         last_h = paged_prefill_chunks(
-            self.cfg, self.params, self.cache,
+            functools.partial(self.steps.prefill, self.params, self.cache.k,
+                              self.cache.v), self.cache,
             [(r.gpu_blocks, toks, cached) for r, toks, cached in items],
             chunk=self.prefill_chunk)
         rows = [i for i, x in enumerate(last_h) if x is not None]
@@ -278,7 +284,7 @@ class TorchBackend:
             # padded to the batch bucket, as the JAX backend does
             stack = [last_h[i] for i in rows]
             stack += [stack[0]] * (_bucket(len(items)) - len(rows))
-            logits = M.head_logits(self.cfg, self.params, torch.stack(stack))
+            logits = self.steps.head(self.params, torch.stack(stack))
             arr = logits[:len(rows)].float().cpu().numpy()
             for j, i in enumerate(rows):
                 self.last_prefill_logits[items[i][0].rid] = arr[j]
@@ -312,11 +318,9 @@ class TorchBackend:
             # exactly-full rows drop the new token's KV (scratch write) and
             # attend over the existing context only
             attn_lens[i] = cl + (1 if wrote[i] else 0)
-        dev = self.device
-        logits = M.paged_decode_step(
-            self.cfg, self.params, self.cache.k, self.cache.v,
-            *(_to(a, dev) for a in (toks, tables, positions, attn_lens,
-                                    slots)))
+        logits = self.steps.decode(self.params, self.cache.k, self.cache.v,
+                                   toks, tables, positions, attn_lens, slots)
+        # read before the next step: a replay overwrites ``logits``
         nxt = torch.argmax(logits[:b], dim=-1).cpu().numpy()
         for i, r in enumerate(reqs):
             self.generated.setdefault(r.rid, []).append(int(nxt[i]))

@@ -20,15 +20,23 @@ decode and prefill layers' RoPE of q and k fused into those two writes,
 one launch per layer) also write the pools in place, and return the
 roped q.
 
-``launches[name]`` counts the kernel launches of each wrapper (CPU calls
-are not counted); ``reset_launches`` sets every count to 0.
+``launches[name]`` counts the kernel launches of each wrapper on the
+card (CPU calls are not counted); ``reset_launches`` sets every count to
+0. A launch recorded into a CUDA graph runs only when the graph is
+replayed, so it is not counted while the graph is captured: the capture
+runs inside ``capture_launches()``, which collects its counts, and each
+replay adds them (``add_launches``). The caller runs the captured code
+once eagerly before the capture, which loads the kernel libraries and
+fills the wrappers' caches (the RoPE table, the split counts); a cache
+that would be filled during a capture raises instead.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -105,11 +113,43 @@ _SIGNATURES = {
                                         _I, _F, _I, _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
+# the launch counts of the CUDA graph being captured (capture_launches)
+_captured: Optional[Dict[str, int]] = None
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Collect the launches made while a CUDA graph is captured, in a dict
+    {name: count} that the context yields (every launch under capture
+    must happen inside this context; replays add it with
+    ``add_launches``)."""
+    global _captured
+    if _captured is not None:
+        raise RuntimeError("capture_launches: a capture is already being "
+                           "counted")
+    _captured = dict.fromkeys(KERNELS, 0)
+    try:
+        yield _captured
+    finally:
+        _captured = None
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Count ``times`` replays of a graph whose capture launched
+    ``counts``."""
+    for k, n in counts.items():
+        if n:
+            launches[k] += n * times
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
 
 
 def _fn(name: str):
@@ -135,7 +175,14 @@ def _launch(name: str, device: torch.device, *args,
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {rc}")
-    launches[name] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches[name] += 1
+    elif _captured is None:
+        raise RuntimeError(f"{name}: launched into a CUDA graph outside "
+                           "ops.capture_launches(), so its replays would "
+                           "go uncounted")
+    else:
+        _captured[name] += 1
 
 
 def _on_cpu(name: str, *tensors) -> bool:
@@ -247,12 +294,24 @@ def _check_token_write(name, k_pages, v_pages, k_new, v_new, slots):
     return code, n, bs, hkv, d
 
 
-@functools.lru_cache(maxsize=None)
+_freqs: Dict[tuple, torch.Tensor] = {}
+
+
 def rope_freqs(d: int, theta: float, device: torch.device) -> torch.Tensor:
     """The (D/2,) float32 RoPE frequencies on ``device``, computed once by
     the plain version's torch expression, so the fused kernels and the
-    plain version on the card read identical frequencies."""
-    return R.rope_frequencies(d, theta, device)
+    plain version on the card read identical frequencies. Made during a
+    CUDA graph capture, the table would live in the graph's private
+    memory, so a miss there raises (an eager call fills it first)."""
+    key = (d, theta, device)
+    t = _freqs.get(key)
+    if t is None:
+        if _capturing():
+            raise RuntimeError(f"rope_freqs{key}: not made before the CUDA "
+                               "graph capture (run the step once eagerly "
+                               "first)")
+        t = _freqs[key] = R.rope_frequencies(d, theta, device)
+    return t
 
 
 def _rope_freqs(name, d, theta, device):
@@ -313,7 +372,13 @@ def decode_splits(device: int, b: int, p: int, bs: int, hkv: int, d: int,
     kernel on CUDA device ``device`` for B sequences over (B, P) tables of
     bs-token pages: about one wave of its blocks, from the shapes and the
     kernel's occupancy alone (``paged_decode_splits`` in
-    ``csrc/paged_attention.cu``), never from context_lens."""
+    ``csrc/paged_attention.cu``), never from context_lens. Cached per
+    shape; a miss during a CUDA graph capture raises (an eager call of
+    the same shapes fills it first)."""
+    if _capturing():
+        raise RuntimeError(f"decode_splits: shapes (B {b}, P {p}) first "
+                           "seen during a CUDA graph capture (run the "
+                           "step once eagerly first)")
     with torch.cuda.device(device):
         n = _fn("paged_decode_splits")(b, p, bs, hkv, d, int(quant))
     if n < 1:

@@ -59,10 +59,13 @@ bf16 KV write kernels.
 
 ``--steps SRC`` imports ``repro_torch`` from the source tree SRC, builds
 Qwen2.5-14B at full width and depth (random bf16 weights from seed 0) with
-the serve phase's pools, and prints as one JSON line the device kernels of
-one ``paged_decode_step`` and one ``paged_prefill_step`` at the serve's
-shape (``chip_smoke.step_device_kernels``). Exits 1 without a CUDA
-device.
+the serve phase's pools, and prints as one JSON line the device kernels,
+copies and memsets of one ``paged_decode_step`` and one
+``paged_prefill_step`` at the serve's shape, and the host's launch calls
+that put them on the card (``chip_smoke.step_device_kernels``): run
+eagerly, and, where SRC has ``models.graphs``, replayed from the step's
+CUDA graph, where the same device kernels take one graph launch and one
+input copy. Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -491,8 +494,10 @@ def kvw_turns(libs: dict, other: str) -> None:
 
 
 def steps(src: str) -> int:
-    """``--steps``: the device kernels of one decode step and one prefill
-    chunk of Qwen2.5-14B with ``repro_torch`` from ``src``."""
+    """``--steps``: the device kernels and host launch calls of one decode
+    step and one prefill chunk of Qwen2.5-14B with ``repro_torch`` from
+    ``src``, eager and (where ``src`` has them) replayed from CUDA
+    graphs."""
     import torch
 
     from chip_smoke import BS, GPU_BLOCKS, step_device_kernels

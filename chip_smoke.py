@@ -36,10 +36,15 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    ungated; bf16 B2 and B9 run the split-context tensor-core decode
    kernel, and their padded row must come out as exact zeros. B2 and B4
    are held and timed a second time at the serve phases' own contexts
-   (variant ``ctx256``: 256-token contexts through 16-page tables), and
-   B14 at Mamba2's shapes is also compared, with its plain version,
-   against the plain version run in float64 on the card (both errors
-   printed, ungated);
+   (variant ``ctx256``: 256-token contexts through 16-page tables); B14
+   must take its tensor-core route at both shapes (its route count), its
+   y and final state are compared with its plain version (``TOL_SSD``)
+   and, with the plain version's, against the plain version run in
+   float64 on the card (max abs and the worst ratio |d| / (atol + rtol
+   |ref|) printed; the kernel's max abs must be at most ``SSD_F64_MAX``),
+   and the device time of each of its route's four launches (G, chunk
+   states, state pass, y) is read from a profile of 20 calls, for f32 and
+   bf16 x;
 4. step check: one bf16 ``paged_decode_step`` and one
    ``paged_prefill_step`` (its last rows through ``head_logits``) at
    Qwen2.5-14B's widths with 2 layers (random weights and pools from seed
@@ -78,9 +83,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    weights from seed 0, through ``models.model.prefill`` of 4 prompts of
    2048 tokens and 32 greedy ``decode_step``s (eager); launch counts are
    zeroed just before and read just after, and the SSD scan (B14) must
-   have run once per layer, and for Hymba sliding-window attention (B15)
-   too; the logits must be finite; prefill and decode wall times, tokens
-   per second and peak memory are printed;
+   have run once per layer on its tensor-core route, and for Hymba
+   sliding-window attention (B15) too; the logits must be finite; prefill
+   and decode wall times, tokens per second and peak memory are printed,
+   and the prefill profile's device ms of B14's and B15's kernels;
 8. check: a small float32 model served on the card (its steps replayed
    from CUDA graphs) gives the same tokens and offloads as the same model
    on the CPU (eager, through the kernels' plain versions), with an fp16
@@ -187,11 +193,24 @@ KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
 FAM_B, FAM_S, FAM_STEPS = 4, 2048, 32
 FAMILY_KERNELS = {"mamba2_130m": ("ssd_scan",),
                   "hymba_1_5b": ("ssd_scan", "swa_attention")}
+# the families phase's profile sums the device time of the kernels whose
+# names hold these
+FAMILY_GROUPS = {"B14": ("ssd_",), "B15": ("swa_attention",)}
 # B14 against its token-sequential plain version: the tolerance of the JAX
 # package's test_ssd_scan (the sums run in another order); B15 in bf16 may
 # differ from its plain version by one bf16 step of the output (2**-7 of
 # its size), and its early rows average few keys, so outputs reach ~4
 TOL_SSD = dict(atol=2e-3, rtol=2e-3)
+# B14's largest distance from its plain version run in float64 (outputs and
+# final state) at each shape: between the tensor-core route's (3.3e-4 at
+# Mamba2's, 2.3e-5 at Hymba's) and that of the route built with two bf16
+# parts per float32 operand instead of three (2.2e-3 / 8.9e-4 with bf16 x;
+# tools/ssd_breakdown.py on the H100), so a slide back to two parts fails
+SSD_F64_MAX = {"mamba2": 1e-3, "hymba": 1.5e-4}
+# the launches of B14's tensor-core route, in order, by the names of their
+# kernels (device time of each from a profile of whole calls)
+SSD_LAUNCHES = {"gram": ("ssd_gram_tc",), "chunk": ("ssd_chunk_tc",),
+                "state": ("ssd_state_kernel",), "out": ("ssd_out_tc",)}
 TOL_ONE_STEP = {"bf16": dict(atol=2e-3, rtol=8e-3),
                 "f32": dict(atol=3e-5, rtol=3e-5)}
 
@@ -213,8 +232,8 @@ KERNEL_PHASE_ONLY = ("kv_token_write", "kv_chunk_write", "kv_block_quant",
                      "paged_prefill_attention_quant", "block_gather",
                      "block_scatter")
 NO_LIBRARY = "none: no single PyTorch call computes this function"
-# the bf16 tensor-core kernels whose ptxas resources the results keep:
-# label -> (source, pattern of the mangled name)
+# the tensor-core kernels whose ptxas resources the results keep: label ->
+# (source, pattern of the mangled name)
 TC_KERNELS = {
     "paged_prefill_tc_kernel<bf16, 128> (B4)": (
         "paged_prefill", r"paged_prefill_tc_kernelI13__nv_bfloat16Li128E"),
@@ -226,6 +245,18 @@ TC_KERNELS = {
         "paged_attention", r"paged_decode_tc_kernelI13__nv_bfloat16Li128E"),
     "paged_decode_tc_kernel<int8_t, 128> (B9)": (
         "paged_attention", r"paged_decode_tc_kernelIaLi128E"),
+    # B14 at N 128 (NK 8: Mamba2-130M) and its y launch at N 16 (Hymba-1.5B)
+    "ssd_gram_tc_kernel<8> (B14)": ("ssd_scan", r"ssd_gram_tc_kernelILi8E"),
+    "ssd_chunk_tc_kernel<bf16, 8> (B14)": (
+        "ssd_scan", r"ssd_chunk_tc_kernelI13__nv_bfloat16Li8E"),
+    "ssd_chunk_tc_kernel<float, 8> (B14)": (
+        "ssd_scan", r"ssd_chunk_tc_kernelIfLi8E"),
+    "ssd_out_tc_kernel<bf16, 8> (B14)": (
+        "ssd_scan", r"ssd_out_tc_kernelI13__nv_bfloat16Li8E"),
+    "ssd_out_tc_kernel<float, 8> (B14)": (
+        "ssd_scan", r"ssd_out_tc_kernelIfLi8E"),
+    "ssd_out_tc_kernel<bf16, 1> (B14)": (
+        "ssd_scan", r"ssd_out_tc_kernelI13__nv_bfloat16Li1E"),
 }
 
 
@@ -676,10 +707,13 @@ def family_kernel_cases(dt: str):
     """B14 at Mamba2-130M's and at Hymba-1.5B's prefill shapes and B15 at
     Hymba-1.5B's (heads repeated to MHA layout), as the families phase
     calls them, in the same form as ``kernel_cases``. B14's operations are
-    those its data needs: the lower triangle of c b^T once per (row,
-    chunk), and per (row, head, chunk) the triangle of w x, c state^T and
-    the state update, on float32 data; B15's are 4 D per (query, visible
-    key) pair, on dt data."""
+    those its data needs (``data_flops``): the lower triangle of c b^T
+    once per (row, chunk), and per (row, head, chunk) the triangle of w x,
+    the state update and, after the first chunk, c state^T; its
+    tensor-core route does each on bf16 MMAs, six passes per product of
+    two float32 operands and three where x is bf16, so ``flops`` counts
+    the MMAs' flops, against the bf16 peak. B15's are 4 D per (query,
+    visible key) pair, on dt data."""
     import functools
 
     import torch
@@ -708,19 +742,23 @@ def family_kernel_cases(dt: str):
         a = dts * -torch.arange(1, h + 1, device=dev, dtype=torch.float32)
         bm, cm = randn(FAM_B, FAM_S, n), randn(FAM_B, FAM_S, n)
         tri, nc = q * (q + 1) // 2, FAM_S // q
+        gram = 2.0 * FAM_B * nc * tri * n
+        intra = 2.0 * FAM_B * nc * h * tri * p
+        inter = 2.0 * FAM_B * (nc - 1) * h * q * p * n
+        update = 2.0 * FAM_B * nc * h * q * p * n
+        px = 3 if dt == "bf16" else 6          # passes of products with x
         cases.append(dict(
             name="ssd_scan", variant=variant, kind="ssd", targets=(),
             shape=f"{arch}: x ({FAM_B}, {FAM_S}, {h}, {p}), N {n}, Q {q}",
             kernel=functools.partial(ops.ssd_scan, x, dts, a, bm, cm, q),
             plain=functools.partial(R.ssd_scan_ref, x, dts, a, bm, cm),
-            plain64=(functools.partial(R.ssd_scan_ref, x, dts, a, bm, cm,
-                                       dtype=torch.float64)
-                     if variant is None else None),
+            plain64=functools.partial(R.ssd_scan_ref, x, dts, a, bm, cm,
+                                      dtype=torch.float64),
             plain_iters=3, library=None, library_call=NO_LIBRARY,
             nbytes=(x.numel() * (es + 4) + 2 * dts.numel() * 4
                     + 2 * bm.numel() * 4 + FAM_B * h * p * n * 4),
-            flops=2.0 * FAM_B * nc * (tri * n + h * (tri * p + 2 * q * p * n)),
-            ops_dt="f32"))
+            data_flops=gram + intra + inter + update,
+            flops=6 * (gram + inter) + px * (intra + update), ops_dt="bf16"))
 
     cfg = get_config("hymba_1_5b")
     hq, d, w = cfg.num_heads, cfg.head_dim, cfg.sliding_window
@@ -738,6 +776,36 @@ def family_kernel_cases(dt: str):
         library_call="scaled_dot_product_attention with a band mask",
         nbytes=4 * qs.numel() * es, flops=4.0 * d * pairs))
     return cases
+
+
+def ssd_launch_ms(fn, calls: int = 20) -> dict:
+    """The device ms of each launch of B14's tensor-core route
+    (``SSD_LAUNCHES``), averaged over the launches that a profile of
+    ``calls`` whole calls of ``fn`` under ``torch.profiler`` recorded, and
+    their sum; raises if it recorded none of a launch, or more than one
+    per call (the profiler may miss the first kernel it sees)."""
+    prof = device_profile(lambda: [fn() for _ in range(calls)],
+                          groups=SSD_LAUNCHES)
+    out = {}
+    for k, g in prof["groups"].items():
+        assert 0 < g["calls"] <= calls, f"B14 {k}: {g['calls']} " \
+            f"launches recorded in {calls} calls"
+        out[k] = g["device_ms"] / g["calls"]
+    out["sum"] = sum(out.values())
+    return out
+
+
+def ssd_errors(got, want) -> dict:
+    """For B14's y and final state: the max abs difference from ``want``
+    and the worst ratio |d| / (atol + rtol |want|) under ``TOL_SSD`` (1 at
+    the tolerance's edge)."""
+    out = {}
+    for what, g, w in zip(("y", "state"), got, want):
+        d = (g.double() - w.double()).abs()
+        out[what] = dict(max_abs=float(d.max()), ratio=float(
+            (d / (TOL_SSD["atol"] + TOL_SSD["rtol"] * w.double().abs()))
+            .max()))
+    return out
 
 
 def one_step(got, want):
@@ -807,10 +875,15 @@ def check_case(case: dict, dt: str) -> float:
         assert bool((err <= bound).all()), f"{case['name']}: round trip"
         return 0.0
     if case["kind"] == "ssd":
+        from repro_torch.kernels import ops
+        tc = ops.route_launches["ssd_scan:tc"]
         (y, st), (yr, sr) = case["kernel"](), case["plain"]()
         torch.cuda.synchronize()
+        assert ops.route_launches["ssd_scan:tc"] == tc + 1, \
+            f"{case['shape']}: B14 did not take its tensor-core route"
         torch.testing.assert_close(y, yr, **TOL_SSD)
         torch.testing.assert_close(st, sr, **TOL_SSD)
+        case["ssd_check"] = ssd_errors((y, st), (yr, sr))
         return max(float((y - yr).abs().max()), float((st - sr).abs().max()))
     if case["kind"] in ("attn", "copy"):
         got, want = case["kernel"](), case["plain"]()
@@ -841,17 +914,18 @@ def check_case(case: dict, dt: str) -> float:
 
 
 def f64_errors(case: dict) -> dict:
-    """Max abs difference of the kernel and of its float32 plain version
-    from the plain version run in float64 on the same inputs (outputs and
-    final states): which side carries their difference."""
+    """The distance (``ssd_errors``) of the kernel and of its float32 plain
+    version from the plain version run in float64 on the same inputs,
+    outputs and final states: which side carries their difference. Raises
+    if the kernel's is above ``SSD_F64_MAX`` for its shape."""
     import torch
-    ref = [t.double() for t in case["plain64"]()]
-    out = {}
-    for side in ("kernel", "plain"):
-        got = case[side]()
-        out[side] = max(float((g.double() - r).abs().max())
-                        for g, r in zip(got, ref))
+    ref = case["plain64"]()
+    out = {side: ssd_errors(case[side](), ref) for side in ("kernel", "plain")}
     torch.cuda.synchronize()
+    worst = max(e["max_abs"] for e in out["kernel"].values())
+    gate = SSD_F64_MAX[case["variant"] or "mamba2"]
+    assert worst <= gate, \
+        f"{case['shape']}: B14 {worst:.3g} from float64 > {gate}"
     return out
 
 
@@ -868,11 +942,24 @@ def kernel_phase():
             row[f"max_abs_err_{dt}"] = err
             if "mismatches" in case:     # fused RoPE writes: one step off
                 row[f"mismatches_{dt}"] = case["mismatches"]
-            if case.get("plain64") is not None:   # information only
+            if case["kind"] == "ssd":
+                row[f"vs_plain_{dt}"] = e = case["ssd_check"]
                 row[f"vs_f64_{dt}"] = d = f64_errors(case)
-                print(f"  {case['name']:28s} {dt}: against the plain version "
-                      f"in float64: kernel {d['kernel']:.3g}, plain (float32)"
-                      f" {d['plain']:.3g} max abs (no gate)", flush=True)
+                label = case["name"] + f" ({case['variant'] or 'mamba2'})"
+                for what, against in (("plain version", e),
+                                      ("float64 kernel", d["kernel"]),
+                                      ("float64 plain", d["plain"])):
+                    print(f"  {label:28s} {dt}: against the {what}: "
+                          + ", ".join(f"{k} max abs {v['max_abs']:.3g} ratio "
+                                      f"{v['ratio']:.3g}"
+                                      for k, v in against.items())
+                          + " (ratio = |d| / (2e-3 + 2e-3 |ref|))", flush=True)
+                # each launch of the route
+                row[f"launch_ms_{dt}"] = st = ssd_launch_ms(case["kernel"])
+                print(f"  {label:28s} {dt}: device ms of each launch, "
+                      "profiled over 20 calls: " + ", ".join(
+                          f"{k} {v:.4f}" for k, v in st.items()),
+                      flush=True)
             if "versus" in case:              # int8 error, information only
                 diff = case["kernel"]().float() - case["versus"]().float()
                 d = row[f"int8_vs_float_max_abs_err_{dt}"] = float(
@@ -893,6 +980,8 @@ def kernel_phase():
                 library_ms=cuda_ms(lib) if lib is not None else None,
                 library_call=case["library_call"], nbytes=case["nbytes"],
                 flops=case["flops"])
+            if "data_flops" in case:
+                row["data_flops"] = case["data_flops"]
             if case.get("library_graph"):    # like for like with ``ms``
                 row["library_graph_ms"] = graph_ms(lib)
             row["bound_ms"], row["bound_by"] = bound_ms(
@@ -1381,15 +1470,17 @@ def family_run(cfg, params, tokens, steps: int):
             time.perf_counter() - t0)
 
 
-def device_profile(fn, top: int = 8) -> dict:
+def device_profile(fn, top: int = 8, groups=None) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity)
     and return its wall ms (profiler overhead included), the summed device
     time of its device-side events (kernels, copies, memsets; one stream,
     so their busy time), their counts by kind, the host calls of
-    ``HOST_LAUNCHES`` that put them on the card, and the ``top`` of them
-    by device time. CPU-side operator rows, which also carry their
-    kernels' device time, are not counted. A profiler that records no
-    device event gives ``device_ms: None`` (not measured)."""
+    ``HOST_LAUNCHES`` that put them on the card, the ``top`` of them by
+    device time, and for each ``groups`` entry {label: kernel names} the
+    device ms and calls of the kernels whose names hold one of the
+    names. CPU-side operator rows, which also carry their kernels'
+    device time, are not counted. A profiler that records no device event
+    gives ``device_ms: None`` (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1418,8 +1509,14 @@ def device_profile(fn, top: int = 8) -> dict:
             rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     dev = sum(r[0] for r in rows)
+    def of(names, k):
+        return any(n in k for n in names)
+    grouped = {label: dict(
+        device_ms=sum(ms for ms, k, _ in rows if of(names, k)),
+        calls=sum(n for _, k, n in rows if of(names, k)))
+        for label, names in (groups or {}).items()}
     return dict(counts, profiled_wall_ms=wall,
-                device_ms=dev if seen else None,
+                device_ms=dev if seen else None, groups=grouped,
                 top=[dict(name=k[:80], device_ms=ms, calls=n)
                      for ms, k, n in rows[:top]])
 
@@ -1453,6 +1550,7 @@ def families_phase(card: str):
         logits, steps, toks, cache, prefill_s, decode_s = family_run(
             cfg, params, tokens, FAM_STEPS)
         launches = dict(ops.launches)
+        routes = dict(ops.route_launches)
         peak = torch.cuda.max_memory_allocated()
 
         assert logits.shape == (FAM_B, 1, cfg.vocab_size)
@@ -1467,13 +1565,17 @@ def families_phase(card: str):
             assert launches[k] == cfg.num_layers, (arch, k, launches[k])
         bad = [k for k in ops.KERNELS if k not in want and launches[k]]
         assert not bad, f"{arch}: unexpected launches {bad}"
+        # both models' scans have Q 64, P 64 and N 128 / 16
+        assert routes == {"ssd_scan:tc": cfg.num_layers,
+                          "ssd_scan:scalar": 0}, (arch, routes)
         counts[arch] = {k: launches[k] for k in want}
         # where the time goes: one prefill and one decode step (the last
         # position again) under the profiler; the idle share compares the
         # device time with the unprofiled wall time above
         prof = {
             "prefill": device_profile(lambda: M.prefill(
-                cfg, params, {"tokens": tokens}, FAM_S + FAM_STEPS)),
+                cfg, params, {"tokens": tokens}, FAM_S + FAM_STEPS),
+                groups=FAMILY_GROUPS),
             "decode_step": device_profile(lambda: M.decode_step(
                 cfg, params, cache, toks[:, -2], FAM_S + FAM_STEPS - 1))}
         for what, wall_ms in (("prefill", prefill_s * 1e3),
@@ -1484,7 +1586,10 @@ def families_phase(card: str):
                                        else 1.0 - pr["device_ms"] / wall_ms)
             print(f"  [{card}] {cfg.name} {what}: device busy "
                   f"{pr['device_ms']} ms of {wall_ms:.2f} ms wall (idle "
-                  f"share {pr['device_idle_share']}); top kernels "
+                  f"share {pr['device_idle_share']}); "
+                  + "".join(f"{k} {g['device_ms']:.3f} ms in {g['calls']} "
+                            "kernels; " for k, g in pr["groups"].items())
+                  + "top kernels "
                   + "; ".join(f"{t['name']} {t['device_ms']:.3f} ms x"
                               f"{t['calls']}" for t in pr["top"]),
                   flush=True)
@@ -1497,7 +1602,7 @@ def families_phase(card: str):
             decode_ms_per_step=decode_s * 1e3 / FAM_STEPS,
             decode_tokens_per_s=FAM_B * FAM_STEPS / decode_s,
             max_memory_allocated_bytes=peak, launches=counts[arch],
-            profile=prof)
+            routes=routes, profile=prof)
         print(f"  [{card}] {cfg.name}: {cfg.num_layers} layers, d_model "
               f"{cfg.d_model}, {n_params / 1e9:.3f} B params in bf16; "
               f"prefill {FAM_B} x {FAM_S} tokens {prefill_s * 1e3:.2f} ms "
@@ -1730,11 +1835,15 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             library_call=r["library_call"]))
-        for extra in ("shape", "hymba", "ctx256", "splits", "vs_f64_f32",
-                      "vs_f64_bf16", "library_graph_ms", "mismatches_bf16",
-                      "mismatches_f32"):
+        for extra in ("shape", "ctx256", "splits", "vs_f64_f32",
+                      "vs_f64_bf16", "vs_plain_f32", "vs_plain_bf16",
+                      "launch_ms_f32", "launch_ms_bf16", "library_graph_ms",
+                      "mismatches_bf16", "mismatches_f32"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
+        if "hymba" in r:           # the line carries no counted flops
+            kernels[-1]["hymba"] = {k: v for k, v in r["hymba"].items()
+                                    if k != "data_flops"}
         if "int8_vs_float_max_abs_err_bf16" in r:
             kernels[-1].update(
                 int8_vs_float_max_abs_err=r["int8_vs_float_max_abs_err_bf16"],
@@ -1746,6 +1855,9 @@ def main() -> int:
                    total_s=total_s, phase_s=phase_s, ptxas_tc=tc,
                    ptxas_writes=writes,
                    kernels=kernels, step_check=checked,
+                   ssd_data_flops={
+                       v: rows["ssd_scan"].get(v, rows["ssd_scan"])[
+                           "data_flops"] for v in ("mamba2", "hymba")},
                    serve=serve, migration=migration, families=families,
                    check=check)
     if args.out:

@@ -21,8 +21,10 @@ one launch per layer) also write the pools in place, and return the
 roped q.
 
 ``launches[name]`` counts the kernel launches of each wrapper on the
-card (CPU calls are not counted); ``reset_launches`` sets every count to
-0. A launch recorded into a CUDA graph runs only when the graph is
+card (CPU calls are not counted); ``route_launches`` counts them by route
+for a wrapper whose C entries pick a kernel by shape (``ssd_scan:tc``,
+``ssd_scan:scalar``); ``reset_launches`` sets every count to 0. A launch
+recorded into a CUDA graph runs only when the graph is
 replayed, so it is not counted while the graph is captured: the capture
 runs inside ``capture_launches()``, which collects its counts, and each
 replay adds them (``add_launches``). The caller runs the captured code
@@ -52,6 +54,8 @@ KERNELS = ("kv_token_write", "paged_attention", "kv_chunk_write",
            "paged_prefill_attention_quant", "block_gather", "block_scatter",
            "ssd_scan", "swa_attention")
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+ROUTES = ("ssd_scan:tc", "ssd_scan:scalar")
+route_launches: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 # queries per thread block of the float32 and int8-page prefill kernels
 PREFILL_Q_TILE = 4
@@ -109,6 +113,7 @@ _SIGNATURES = {
     "block_scatter": ("block_copy", [_P, _P, _P, _I64, _I64, _I64, _P]),
     "ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
                               _I, _I, _I, _I, _I, _P]),
+    "ssd_scan_tc": ("ssd_scan", [_P] * 10 + [_I64] + [_I] * 6 + [_P]),
     "swa_attention": ("swa_attention", [_P, _P, _P, _P, _I64, _I, _I, _I,
                                         _I, _F, _I, _P]),
 }
@@ -118,8 +123,9 @@ _captured: Optional[Dict[str, int]] = None
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, route_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 @contextlib.contextmanager
@@ -132,7 +138,7 @@ def capture_launches():
     if _captured is not None:
         raise RuntimeError("capture_launches: a capture is already being "
                            "counted")
-    _captured = dict.fromkeys(KERNELS, 0)
+    _captured = dict.fromkeys(KERNELS + ROUTES, 0)
     try:
         yield _captured
     finally:
@@ -144,7 +150,7 @@ def add_launches(counts: Dict[str, int], times: int = 1) -> None:
     ``counts``."""
     for k, n in counts.items():
         if n:
-            launches[k] += n * times
+            (launches if k in launches else route_launches)[k] += n * times
 
 
 def _capturing() -> bool:
@@ -163,10 +169,11 @@ def _fn(name: str):
     return fn
 
 
-def _launch(name: str, device: torch.device, *args,
-            entry: str = None) -> None:
+def _launch(name: str, device: torch.device, *args, entry: str = None,
+            route: str = None) -> None:
     """Launch C entry ``entry`` (default: ``name``) on the current stream
-    and count one launch of ``name``."""
+    and count one launch of ``name`` (and of ``name:route`` when a route
+    is given)."""
     if device.index is not None and \
             device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensors are on {device}, but the current "
@@ -175,14 +182,17 @@ def _launch(name: str, device: torch.device, *args,
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {rc}")
+    keys = (name,) if route is None else (name, f"{name}:{route}")
     if not torch.cuda.is_current_stream_capturing():
-        launches[name] += 1
+        for k in keys:
+            (launches if k in launches else route_launches)[k] += 1
     elif _captured is None:
         raise RuntimeError(f"{name}: launched into a CUDA graph outside "
                            "ops.capture_launches(), so its replays would "
                            "go uncounted")
     else:
-        _captured[name] += 1
+        for k in keys:
+            _captured[k] += 1
 
 
 def _on_cpu(name: str, *tensors) -> bool:
@@ -828,8 +838,10 @@ def paged_prefill_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
 # ---------------------------------------------------------------------------
 
 # largest SSD chunk and state width, and largest head dim of sliding-window
-# attention, that the CUDA kernels take
+# attention, that the CUDA kernels take; the chunk and head dim of the SSD
+# scan's tensor-core route
 SSD_MAX_CHUNK, SSD_MAX_STATE, SWA_MAX_HEAD_DIM = 64, 128, 128
+SSD_TC_CHUNK, SSD_TC_HEAD_DIM, SSD_TC_STATES = 64, 64, (16, 32, 64, 128)
 
 
 def ssd_scan(x, dt, a, b, c, chunk: int = 64):
@@ -839,6 +851,17 @@ def ssd_scan(x, dt, a, b, c, chunk: int = 64):
     float32 (a = dt * A, A < 0); b, c: (B, S, N) float32, shared by all
     heads. S must be a multiple of ``chunk`` (callers pad). Returns
     (y (B, S, H, P) float32, final state (B, H, P, N) float32).
+
+    Two routes, picked from the shapes before the launch (``_ssd_tc``; the
+    C entries hold the same rule and each refuses the other's shapes, so
+    neither is a fallback): chunk 64, P 64 and N 16, 32, 64 or 128 with
+    x, b and c on 16-byte boundaries (Mamba2-130M, Hymba-1.5B) take the
+    tensor-core kernels (``ssd_scan_tc``: c b^T once per chunk for all
+    heads, every product on mma.sync over three-part bf16 splits, which
+    needs 16-row tiles, 16-byte rows and one instantiation per N); every
+    other shape takes the scalar kernels (``ssd_scan``), whose register
+    tiles take any Q up to 64, any P and N up to 128. One call counts one
+    launch of ``ssd_scan`` and one of its route in ``route_launches``.
     """
     name = "ssd_scan"
     bsz, s, h, p = x.shape
@@ -866,16 +889,36 @@ def ssd_scan(x, dt, a, b, c, chunk: int = 64):
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((bsz, s, h, p), **f32)
     state = torch.empty((bsz, h, p, n), **f32)
-    # scratch: each chunk's state contribution, then the state entering it,
-    # and each chunk's decay
+    # scratch of both routes: each chunk's state contribution, which the
+    # state pass overwrites with the state entering the chunk, and each
+    # chunk's decay
     cs = torch.empty((bsz, h, s // chunk, p, n), **f32)
     decay = torch.empty((bsz, h, s // chunk), **f32)
-    if bsz and h and p:
-        _launch(name, x.device, x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                b.data_ptr(), c.data_ptr(), y.data_ptr(), state.data_ptr(),
-                cs.data_ptr(), decay.data_ptr(), bsz, s, h, p, n, chunk,
-                _DTYPE_CODE[x.dtype])
+    if not (bsz and h and p):
+        return y, state
+    args = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), state.data_ptr(), cs.data_ptr(),
+            decay.data_ptr())
+    if _ssd_tc(x, b, c, chunk):
+        # G = c b^T of every chunk, once for all heads (2 MB for Mamba2)
+        gram = torch.empty((bsz, s // chunk, chunk, chunk), **f32)
+        _launch(name, x.device, *args, gram.data_ptr(), bsz, s, h, p, n,
+                chunk, _DTYPE_CODE[x.dtype], entry="ssd_scan_tc",
+                route="tc")
+    else:
+        _launch(name, x.device, *args, bsz, s, h, p, n, chunk,
+                _DTYPE_CODE[x.dtype], route="scalar")
     return y, state
+
+
+def _ssd_tc(x, b, c, chunk: int) -> bool:
+    """Whether an SSD scan takes the tensor-core route: chunk 64, P 64, N
+    16, 32, 64 or 128 (one instantiation each), and x, b, c on 16-byte
+    boundaries (16-byte loads of their rows). The C entries hold the same
+    rule (``tc_takes``)."""
+    return (chunk == SSD_TC_CHUNK and x.shape[-1] == SSD_TC_HEAD_DIM
+            and b.shape[-1] in SSD_TC_STATES
+            and all(t.data_ptr() % 16 == 0 for t in (x, b, c)))
 
 
 def swa_attention(q, k, v, window: int, q_block: int = 128,

@@ -25,9 +25,13 @@ and so are the single-layer block copies; attention over int8 pools
 takes the attention kernels' tolerances. The SSD scan (B14) is held to
 its token-sequential plain version at 2e-3, the tolerance of the JAX
 package's ``test_ssd_scan`` (the chunked sums run in another order over
-up to 256 steps); sliding-window attention (B15) takes the attention
-tolerances. The Hymba smoke model runs prefill and decode on the card in
-float32 (full float32 products) and matches the CPU to 1e-4.
+up to 256 steps), on both of its routes (tensor cores at Mamba2's and
+Hymba's widths, scalar kernels at ragged shapes, told apart by
+``ops.route_launches``), and at the two models' full prefill shapes to
+within 1e-3 (Mamba2) and 1.5e-4 (Hymba) of a float64 run; sliding-window
+attention (B15) takes the attention tolerances. The Hymba smoke model runs
+prefill and decode on the card in float32 (full float32 products) and
+matches the CPU to 1e-4.
 """
 import numpy as np
 import pytest
@@ -834,6 +838,105 @@ def test_ssd_scan(dev, dt, b, s, h, p, n, q):
     torch.testing.assert_close(st, sr, atol=2e-3, rtol=2e-3)
 
 
+def _ssd_inputs(gen, b, s, h, p, n, dt, dev, a_max=None):
+    """x, dt, a, b, c as chip_smoke.py draws them: A = -(1 .. a_max)
+    over the heads (-1 .. -H, as the models initialize it, by default)."""
+    x = _rand(gen, (b, s, h, p), dt, dev)
+    dts = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev))
+    big_a = -torch.linspace(1.0, float(a_max or h), h, device=dev)
+    bm, cm = (torch.randn((b, s, n), generator=gen, device=dev)
+              for _ in "bc")
+    return x, dts, dts * big_a, bm, cm
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,p,n,q,route", [
+    (1, 128, 24, 64, 128, 64, "tc"),      # Mamba2-130M widths
+    (1, 128, 50, 64, 16, 64, "tc"),       # Hymba-1.5B widths
+    (2, 128, 3, 16, 128, 16, "scalar"),   # Q and P 16
+    (1, 96, 5, 40, 4, 32, "scalar"),      # P 40, N 4
+    (2, 20, 2, 8, 8, 20, "scalar"),       # Q 20
+    (1, 128, 2, 64, 40, 64, "scalar"),    # N not a multiple of 16
+    (1, 128, 2, 64, 48, 64, "scalar"),    # N 48: no instantiation
+])
+def test_ssd_scan_route(dev, dt, b, s, h, p, n, q, route):
+    """Each shape takes one route, counted in ops.route_launches: the
+    tensor-core kernels at Mamba2's and Hymba's widths, the scalar ones at
+    the ragged shapes; both within 2e-3 of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, dts, a, bm, cm = _ssd_inputs(gen, b, s, h, p, n, dt, dev)
+    ops.reset_launches()
+    y, st = ops.ssd_scan(x, dts, a, bm, cm, chunk=q)
+    yr, sr = R.ssd_scan_ref(x, dts, a, bm, cm)
+    torch.cuda.synchronize()
+    other = "scalar" if route == "tc" else "tc"
+    assert ops.launches["ssd_scan"] == 1
+    assert ops.route_launches == {f"ssd_scan:{route}": 1,
+                                  f"ssd_scan:{other}": 0}
+    torch.testing.assert_close(y, yr, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(st, sr, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ssd_scan_misaligned_x_takes_the_scalar_route(dev, dt):
+    """At Mamba2's widths an x that does not start on a 16-byte boundary
+    takes the scalar kernels (the tensor-core ones load 16-byte rows)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, dts, a, bm, cm = _ssd_inputs(gen, 1, 128, 24, 64, 128, dt, dev)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    shifted = shifted.view(x.shape)
+    shifted.copy_(x)
+    ops.reset_launches()
+    y, st = ops.ssd_scan(shifted, dts, a, bm, cm)
+    torch.cuda.synchronize()
+    assert ops.route_launches["ssd_scan:scalar"] == 1
+    assert ops.route_launches["ssd_scan:tc"] == 0
+    yr, sr = R.ssd_scan_ref(x, dts, a, bm, cm)
+    torch.testing.assert_close(y, yr, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(st, sr, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("h,n,gate", [(24, 128, 1e-3), (50, 16, 1.5e-4)])
+def test_ssd_scan_tc_error_against_float64(dev, dt, h, n, gate):
+    """At Mamba2-130M's (H 24, N 128) and Hymba-1.5B's (H 50, N 16)
+    prefill shapes, B 4, S 2048, P 64, Q 64, the tensor-core route is at
+    most ``gate`` from a float64 run of the plain version, outputs and
+    final state: chip_smoke.py's SSD_F64_MAX, which a build with two bf16
+    parts per float32 operand exceeds (2.2e-3 / 8.9e-4 with bf16 x) and
+    the scalar kernels at Mamba2's shape too (1.87e-3)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x, dts, a, bm, cm = _ssd_inputs(gen, 4, 2048, h, 64, n, dt, dev)
+    ops.reset_launches()
+    got = ops.ssd_scan(x, dts, a, bm, cm)
+    want = R.ssd_scan_ref(x, dts, a, bm, cm, dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert ops.route_launches["ssd_scan:tc"] == 1
+    for g, w in zip(got, want):
+        assert float((g.double() - w).abs().max()) <= gate
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ssd_scan_tc_masked_triangle_stays_finite(dev, dt):
+    """dt scaled up to about 8 with A = -24 drives each chunk's cumulative
+    decay to about -10^4, where exp of a difference above the diagonal
+    would overflow: the tensor-core route gives finite outputs within
+    2e-3 of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x, dts, _, bm, cm = _ssd_inputs(gen, 1, 256, 4, 64, 32, dt, dev)
+    dts = dts * 4.0
+    a = dts * -24.0
+    ops.reset_launches()
+    y, st = ops.ssd_scan(x, dts, a, bm, cm)
+    yr, sr = R.ssd_scan_ref(x, dts, a, bm, cm)
+    torch.cuda.synchronize()
+    assert ops.route_launches["ssd_scan:tc"] == 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    torch.testing.assert_close(y, yr, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(st, sr, atol=2e-3, rtol=2e-3)
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("b,s,h,d,window", [
     (4, 2048, 25, 64, 1024),      # Hymba-1.5B prefill, heads repeated
@@ -908,9 +1011,10 @@ def test_hymba_smoke_prefill_decode_card_equals_cpu(dev):
             nxt = lg.argmax(-1).to(torch.int32)
         runs[str(d)] = ([t.cpu() for t in out],
                         {k: v.cpu() for k, v in cache.items()},
-                        dict(ops.launches))
+                        {**ops.launches, **ops.route_launches})
     (lc, cc, _), (lg, cg, n) = runs["cpu"], runs[str(dev)]
     assert n["ssd_scan"] == cfg.num_layers
+    assert n["ssd_scan:tc"] == cfg.num_layers       # P 64, N 16, Q 64
     assert n["swa_attention"] == cfg.num_layers
     for a, b in zip(lg, lc):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -39,6 +39,12 @@ path's shape (or Hymba-1.5B's widths), to the port's plain version
 within ``chip_smoke.py``'s bf16 tolerance for that kernel (2e-3 for
 paged prefill and decode; one bf16 step, atol 2e-3 and rtol 8e-3, for
 sliding-window attention).
+
+The SSD scan's tensor-core route is emulated by ``emulate_ssd_tc`` of
+``torch_ssd_emulation.py`` (no JAX there, so that it also runs on the
+card), held to the Pallas kernel and the JAX oracle at test_ssd_scan's
+2e-3 and, at Mamba2-130M's and Hymba-1.5B's widths, to a float64 run of
+the plain version: no farther from it than the float32 cumsum order.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +56,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as JR
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
+from torch_ssd_emulation import (emulate_ssd_cumsum_f32, emulate_ssd_tc,
+                                 emulate_ssd_terms, ssd_inputs)
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -543,6 +551,119 @@ def test_swa_tc_emulation_at_hymba_widths():
     want = R.swa_attention_ref(q, k, v, 192)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
                                rtol=8e-3)
+
+
+def _ssd_inputs(rng, b, s, h, p, n, dt, a_scale=None):
+    """test_ssd_scan's inputs as (JAX, torch) pairs, x in ``dt``; with
+    a_scale, A = -(1 .. a_scale) over the heads as chip_smoke.py draws
+    it."""
+    x, *rest = ssd_inputs(rng, b, s, h, p, n, a_scale)
+    return (pair(x, dt), *(pair(t, "f32") for t in rest))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("s,q", [(64, 16), (128, 64), (96, 32)])
+@pytest.mark.parametrize("h,p,n", [(2, 8, 4), (3, 16, 8)])
+def test_ssd_tc_emulation_matches_pallas(dt, s, q, h, p, n):
+    """The emulated tensor-core SSD scan against the Pallas kernel
+    (interpret mode) and the JAX oracle on test_ssd_scan's inputs and at
+    its 2e-3 tolerance."""
+    (x, tx), (jdt, tdt), (ja, ta), (jb, tb), (jc, tc) = _ssd_inputs(
+        np.random.default_rng(10), 2, s, h, p, n, dt)
+    y, st = emulate_ssd_tc(tx, tdt, ta, tb, tc, chunk=q)
+    for want_y, want_s in (jops.ssd_scan(x, jdt, ja, jb, jc, chunk=q),
+                           JR.ssd_scan_ref(x, jdt, ja, jb, jc)):
+        np.testing.assert_allclose(npf(y), npf(want_y), atol=2e-3, rtol=2e-3)
+        np.testing.assert_allclose(npf(st), npf(want_s), atol=2e-3,
+                                   rtol=2e-3)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("h,n,a_scale", [(24, 128, 24), (50, 16, 50)])
+def test_ssd_tc_emulation_at_model_widths(dt, h, n, a_scale):
+    """At Mamba2-130M's widths (H 24, P 64, N 128, A down to -24) and
+    Hymba-1.5B's (H 50, N 16, A down to -50), B 1, S 256: the emulated
+    tensor-core scan is no farther from a float64 run of the plain version
+    than the float32 chunked scan that takes differences of the in-chunk
+    cumsum (the scalar route's and the Pallas kernel's order), and within
+    2e-3 of the float32 plain version."""
+    (_, x), (_, dtv), (_, av), (_, bm), (_, cm) = _ssd_inputs(
+        np.random.default_rng(22), 1, 256, h, 64, n, dt, a_scale)
+    want = R.ssd_scan_ref(x, dtv, av, bm, cm, dtype=torch.float64)
+
+    def err(got):
+        return max(float((g.double() - w).abs().max())
+                   for g, w in zip(got, want))
+
+    got = emulate_ssd_tc(x, dtv, av, bm, cm)
+    assert err(got) <= err(emulate_ssd_cumsum_f32(x, dtv, av, bm, cm))
+    for g, w in zip(got, R.ssd_scan_ref(x, dtv, av, bm, cm)):
+        torch.testing.assert_close(g, w, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ssd_emulation_in_float64_is_the_scan(dt):
+    """Unsplit and in float64 (``parts=None``), the emulation's two terms
+    of y sum to a float64 run of the plain version, and its final state
+    equals that run's, within 1e-10: the per-term reference that
+    tools/ssd_breakdown.py holds the kernel's terms to computes the
+    scan."""
+    (_, x), (_, dtv), (_, av), (_, bm), (_, cm) = _ssd_inputs(
+        np.random.default_rng(24), 2, 128, 3, 16, 8, dt, 24)
+    intra, inter, st = emulate_ssd_terms(x, dtv, av, bm, cm, parts=None)
+    want_y, want_st = R.ssd_scan_ref(x, dtv, av, bm, cm,
+                                     dtype=torch.float64)
+    assert intra.dtype == inter.dtype == st.dtype == torch.float64
+    torch.testing.assert_close(intra + inter, want_y, atol=1e-10, rtol=0)
+    torch.testing.assert_close(st, want_st, atol=1e-10, rtol=0)
+
+
+def test_ssd_tc_emulation_masked_triangle_stays_finite():
+    """dt up to 8 and A = -24 drive the chunk's cumulative decay to about
+    -10^4, where exp of any difference above the diagonal would overflow:
+    the emulated kernel's outputs stay finite and match the plain
+    version."""
+    rng = np.random.default_rng(23)
+    (_, x), (_, dtv), _, (_, bm), (_, cm) = _ssd_inputs(
+        rng, 1, 128, 4, 64, 32, "f32")
+    dtv = dtv * 4.0
+    av = dtv * -24.0
+    got = emulate_ssd_tc(x, dtv, av, bm, cm)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    for g, w in zip(got, R.ssd_scan_ref(x, dtv, av, bm, cm)):
+        torch.testing.assert_close(g, w, atol=2e-3, rtol=2e-3)
+
+
+def test_ssd_tc_emulation_in_hymba_smoke_model(monkeypatch):
+    """The float32 Hymba smoke model, whose SSD scans take the tensor-core
+    route on the card (P 64, N 16; 150 tokens padded to the 64-token
+    chunk): prefill with the emulated kernel in place of the plain scan
+    keeps the logits and every cache within 1e-4 of the plain run, the
+    tolerance of tests/test_torch_gpu.py's card-vs-CPU check."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_smoke_config("hymba_1_5b"),
+                              dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 150)), dtype=torch.int32)
+    want_logits, want_cache = M.prefill(cfg, params, {"tokens": toks}, 160)
+    calls = []
+
+    def scan(x, dt, a, b, c, chunk=64):
+        calls.append((x.shape[-1], b.shape[-1], chunk))
+        return emulate_ssd_tc(x, dt, a, b, c, chunk)
+
+    monkeypatch.setattr(ops, "ssd_scan", scan)
+    logits, cache = M.prefill(cfg, params, {"tokens": toks}, 160)
+    assert calls == [(64, 16, 64)] * cfg.num_layers
+    torch.testing.assert_close(logits, want_logits, atol=1e-4, rtol=1e-4)
+    for k in want_cache:
+        torch.testing.assert_close(cache[k], want_cache[k], atol=1e-4,
+                                   rtol=1e-4)
 
 
 def test_lib_path_hashes_every_header(tmp_path, monkeypatch):

@@ -12,8 +12,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    kernels/csrc`` with nvcc (all sources in parallel), and nvcc's ptxas
    register/spill report; the registers, spill bytes and static shared
    memory of the bf16 tensor-core kernels (B2, B4, B9 and B10 at D 128,
-   B15 at D 64) and of the bf16 KV write kernels (plain and fused with
-   RoPE) also go into the results;
+   B2 and B4 at D 112, B15 at D 64) and of the bf16 KV write kernels
+   (plain and fused with RoPE) also go into the results;
 3. kernels: each kernel at the serving path's shapes for Qwen2.5-14B
    (bf16, and float32 for correctness), held against its plain PyTorch
    version (exact for writes, copies and the int8 quantize / dequantize
@@ -34,9 +34,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    instantiation of B4's tensor-core kernel), and their difference from
    the float kernels on the same inputs (the int8 error) is printed,
    ungated; bf16 B2 and B9 run the split-context tensor-core decode
-   kernel, and their padded row must come out as exact zeros. B2 and B4
-   are held and timed a second time at the serve phases' own contexts
-   (variant ``ctx256``: 256-token contexts through 16-page tables); B14
+   kernel, and their padded row must come out as exact zeros. B2, B4
+   and the fused writes are held and timed again at each serve's own
+   shape (``serve_shape_cases``: 256-token contexts through 16-page
+   tables, a 32-token chunk), at Qwen2.5-14B's heads (variant ``ctx256``)
+   and at Kimi-K2's (variant ``d112``: H 64, Hkv 8, D 112); B14
    must take its tensor-core route at both shapes (its route count), its
    y and final state are compared with its plain version (``TOL_SSD``)
    and, with the plain version's, against the plain version run in
@@ -78,7 +80,18 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    the fused writes, B2, B4, B7 and B8 must have run (the same launch
    checks), with at least one offload and one upload and wire bytes in
    whole int8 blocks; then the same timing;
-7. families: Mamba2-130M (SSM) and Hymba-1.5B (hybrid: sliding-window
+7. serve kimi: Kimi-K2 (MoE: 384 experts, top 8, expert d_ff 2048) at
+   full width (d_model 7168, 64 / 8 heads of D 112) and 2 of its 61
+   layers, random bf16 weights from seed 0, through the engine as in
+   phase 5 (fp16 host tier, the same pools and prompt cut) with two apps
+   and decode segments cut to 16 tokens: the same launch checks (the
+   fused writes, B2, B4, B5 and B6), at least one offload, no truncated
+   prompt, finite logits; the experts' batched products of one decode
+   step and one prefill chunk timed alone (CUDA events); then the graph
+   phase at its shape (replay = eager bit for bit, wall ms, idle share,
+   one step each way under the profiler, whose replayed steps' profiles
+   give the products' kernels' share of their device time);
+8. families: Mamba2-130M (SSM) and Hymba-1.5B (hybrid: sliding-window
    attention beside SSM heads) at full width and depth, random bf16
    weights from seed 0, through ``models.model.prefill`` of 4 prompts of
    2048 tokens and 32 greedy ``decode_step``s (eager); launch counts are
@@ -87,10 +100,12 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    sliding-window attention (B15) too; the logits must be finite; prefill
    and decode wall times, tokens per second and peak memory are printed,
    and the prefill profile's device ms of B14's and B15's kernels;
-8. check: a small float32 model served on the card (its steps replayed
-   from CUDA graphs) gives the same tokens and offloads as the same model
-   on the CPU (eager, through the kernels' plain versions), with an fp16
-   and with an int8 host tier; and small float32 Mamba2 and Hymba models
+9. check: a small float32 dense model and a small float32 MoE model
+   (whose experts drop entries past their capacity) served on the card
+   (their steps replayed from CUDA graphs) give the same tokens and
+   offloads as the same models on the CPU (eager, through the kernels'
+   plain versions), with an fp16 and with an int8 host tier; and small
+   float32 Mamba2, Hymba and Mixtral (MoE with a sliding window) models
    give the same prefill and decode logits and caches on the card as on
    the CPU (1e-4).
 
@@ -102,11 +117,13 @@ B1 and B3 alone (``kv_token_write``, ``kv_chunk_write``): the serve
 writes K/V through ``rope_kv_token_write`` and ``rope_kv_chunk_write``.
 B14 and B15 are held and timed in phase 3 at the families phase's shapes
 (B14 at Mamba2's and at Hymba's; bf16 B15 is its tensor-core kernel);
-their launches are those of phase 7.
+their launches are those of phase 8. The launches of the serving path's
+kernels are the sum of the three serve phases' (5, 6 and 7); a ``d112``
+variant carries the Kimi-K2 serve's own.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``. With ``--only
-kernels`` phases 4-8 are skipped and every launch count in that line is
+kernels`` phases 4-9 are skipped and every launch count in that line is
 the kernel phase's. ``--out PATH`` also writes the full results as JSON.
 Engine latencies in the serve report are virtual time from the A100 cost
 model, not card time.
@@ -134,8 +151,9 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}       # dense, no sparsity
 # the serve phase's 2048-block pool (plus its scratch block)
 B, H, HKV, D, BS, C, P, M_BLOCKS, LAYERS = 8, 40, 8, 128, 16, 32, 64, 32, 48
 GPU_BLOCKS, HOST_BLOCKS = 2048, 1024
-# the serve phases cut prompts to this many tokens: B4 is also held and
-# timed at such contexts (its "ctx256" variant)
+# the serve phases cut prompts to this many tokens: the attention kernels
+# and the fused writes are also held and timed at such contexts
+# (``serve_shape_cases``)
 CTX_SHORT = 256
 
 # bf16: kernel and plain version both accumulate in f32 and round once, so
@@ -245,6 +263,11 @@ TC_KERNELS = {
         "paged_attention", r"paged_decode_tc_kernelI13__nv_bfloat16Li128E"),
     "paged_decode_tc_kernel<int8_t, 128> (B9)": (
         "paged_attention", r"paged_decode_tc_kernelIaLi128E"),
+    # Kimi-K2's head dim (7168 / 64)
+    "paged_prefill_tc_kernel<bf16, 112> (B4)": (
+        "paged_prefill", r"paged_prefill_tc_kernelI13__nv_bfloat16Li112E"),
+    "paged_decode_tc_kernel<bf16, 112> (B2)": (
+        "paged_attention", r"paged_decode_tc_kernelI13__nv_bfloat16Li112E"),
     # B14 at N 128 (NK 8: Mamba2-130M) and its y launch at N 16 (Hymba-1.5B)
     "ssd_gram_tc_kernel<8> (B14)": ("ssd_scan", r"ssd_gram_tc_kernelILi8E"),
     "ssd_chunk_tc_kernel<bf16, 8> (B14)": (
@@ -459,30 +482,6 @@ def kernel_cases(dt: str):
         nbytes=2 * B * H * D * es + 2 * ctx * row + 4 * (B * P + B),
         flops=4.0 * H * D * ctx))
 
-    # B2 at the serve phases' own contexts: 256 tokens through a 16-page
-    # table, the last row padded
-    p16 = CTX_SHORT // BS
-    tables16 = ints(perm[:, :p16])
-    lens16 = np.full(B, CTX_SHORT)
-    lens16[-1] = 0
-    cl16 = ints(lens16)
-    ctx16 = int(lens16.sum())
-    kd16, vd16 = (x[tables16.long()].reshape(B, CTX_SHORT, HKV, D)
-                  .transpose(1, 2).contiguous() for x in (kp, vp))
-    mask16_d = (torch.arange(CTX_SHORT, device=dev)[None, :]
-                < cl16.long()[:, None])[:, None, None, :]
-    cases.append(dict(
-        name="paged_attention", variant="ctx256", kind="attn", targets=(),
-        zero_rows=[B - 1], splits=splits(p16, False),
-        shape=f"q ({B}, {H}, {D}), {p16}-page tables, {CTX_SHORT}-token "
-              f"contexts",
-        kernel=lambda: ops.paged_attention(q, kp, vp, tables16, cl16),
-        plain=lambda: R.paged_attention_ref(q, kp, vp, tables16, cl16),
-        library=sdpa(q[:, :, None], kd16, vd16, mask16_d),
-        library_call="scaled_dot_product_attention over pre-gathered K/V",
-        nbytes=2 * B * H * D * es + 2 * ctx16 * row + 4 * (B * p16 + B),
-        flops=4.0 * H * D * ctx16))
-
     # B3 kv_chunk_write: row i's 32-token window starts at offset i of its
     # first page and spills into the next two; the last row is padding
     kc, vc = rand(B, C, HKV, D), rand(B, C, HKV, D)
@@ -551,30 +550,6 @@ def kernel_cases(dt: str):
                 + 2 * int((qpos.max(axis=1) + 1).sum()) * row
                 + 4 * (B * C + B * P)),
         flops=4.0 * H * D * int((qpos[live_q] + 1).sum())))
-
-    # B4 at the serve phase's own contexts (prompts cut to 256 tokens): the
-    # last 32-token chunk of a 256-token context through B2's 16-page
-    # tables, the last row padding
-    qpos16 = np.full((B, C), -1)
-    qpos16[:B - 1] = CTX_SHORT - C + np.arange(C)
-    qp16 = ints(qpos16)
-    live16 = qpos16 >= 0
-    mask16 = (torch.arange(CTX_SHORT, device=dev)[None, None, :]
-              <= qp16.long()[:, :, None])[:, None]
-    cases.append(dict(
-        name="paged_prefill_attention", variant="ctx256", kind="attn",
-        targets=(), shape=f"q ({B}, {C}, {H}, {D}), {p16}-page tables, "
-                          f"{CTX_SHORT}-token contexts",
-        kernel=lambda: ops.paged_prefill_attention(qc, kp, vp, tables16,
-                                                   qp16),
-        plain=lambda: R.paged_prefill_attention_ref(qc, kp, vp, tables16,
-                                                    qp16),
-        library=sdpa(qc.transpose(1, 2), kd16, vd16, mask16),
-        library_call="scaled_dot_product_attention over pre-gathered K/V",
-        nbytes=(2 * int(live16.sum()) * H * D * es
-                + 2 * int((qpos16.max(axis=1) + 1).sum()) * row
-                + 4 * (B * C + B * p16)),
-        flops=4.0 * H * D * int((qpos16[live16] + 1).sum())))
 
     # B5/B6: 32 blocks of the serve phase's 48-layer pool, as one offload /
     # upload moves them; the ids include the last live block and the
@@ -700,6 +675,138 @@ def kernel_cases(dt: str):
         plain=lambda: R.block_scatter_ref(page1, idx, staging1),
         library=lambda: page1.index_copy_(0, idx64, staging1),
         library_call="index_copy_", nbytes=moved1, flops=0.0))
+    return cases
+
+
+def serve_shape_cases(dt: str, arch: str, variant: str):
+    """The decode and prefill kernels of a serve phase at its own shape:
+    ``arch``'s attention heads (Qwen2.5-14B: H 40, Hkv 8, D 128, variant
+    ``ctx256``; Kimi-K2: H 64, Hkv 8, D 112 = 7168 / 64, variant ``d112``)
+    and the serves' batch and contexts: B 8 rows, the last padded, of
+    256-token contexts through 16-page tables, a 32-token chunk. Variants
+    of the fused RoPE + B1 / RoPE + B3 writes, B2 and B4, held and timed
+    as their main-path cases are (bytes and operations counted the same
+    way)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    td = torch.bfloat16 if dt == "bf16" else torch.float32
+    es = torch.finfo(td).bits // 8
+    cfg = get_config(arch)
+    h, hkv, d, theta = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                        cfg.rope_theta)
+    row = hkv * d * es
+    rng = np.random.default_rng(2)
+    p16 = CTX_SHORT // BS
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(td)
+
+    def ints(x):
+        return torch.as_tensor(np.asarray(x, np.int32)).to(dev)
+
+    n = B * p16 + 1                      # pool pages + scratch page
+    kp, vp = rand(n, BS, hkv, d), rand(n, BS, hkv, d)
+    perm = rng.permutation(B * p16).reshape(B, p16)
+    tables = ints(perm)
+    common = dict(variant=variant, targets=(kp, vp))
+    cases = []
+
+    # RoPE + B1: each live row writes its position-255 slot, the last two
+    # rows are padded into the scratch slot
+    slots = perm[:, -1] * BS + BS - 1
+    slots[-2:] = (n - 1) * BS
+    sl = ints(slots)
+    live_d = torch.zeros(n * BS, dtype=torch.bool, device=dev)
+    live_d[sl.long()[:-2]] = True
+    qd, kd1, vd1 = rand(B, h, d), rand(B, hkv, d), rand(B, hkv, d)
+    posd = ints([CTX_SHORT - 1] * B)
+    cases.append(dict(
+        common, name="rope_kv_token_write", kind="rope_write",
+        written=live_d, shape=f"q ({B}, {h}, {d}), k/v ({B}, {hkv}, {d})",
+        kernel=lambda: ops.rope_kv_token_write(qd, kd1, vd1, kp, vp, sl,
+                                               posd, theta),
+        plain=lambda: R.rope_kv_token_write_ref(qd, kd1, vd1, kp, vp, sl,
+                                                posd, theta),
+        library=None, library_call=NO_LIBRARY,
+        nbytes=2 * B * h * d * es + 4 * (B - 2) * row + 8 * B + 2 * d,
+        flops=3.0 * (B * h + (B - 2) * hkv) * d, ops_dt="f32"))
+
+    # B2: 256-token contexts, the last row padded
+    q = rand(B, h, d)
+    lens = np.full(B, CTX_SHORT)
+    lens[-1] = 0
+    cl = ints(lens)
+    ctx = int(lens.sum())
+    kd, vd = (x[tables.long()].reshape(B, CTX_SHORT, hkv, d).transpose(1, 2)
+              .contiguous() for x in (kp, vp))
+    mask_d = (torch.arange(CTX_SHORT, device=dev)[None, :]
+              < cl.long()[:, None])[:, None, None, :]
+    cases.append(dict(
+        common, name="paged_attention", kind="attn", targets=(),
+        zero_rows=[B - 1],
+        splits=lambda: ops.decode_splits(torch.cuda.current_device(), B, p16,
+                                         BS, hkv, d, False),
+        shape=f"q ({B}, {h}, {d}), {p16}-page tables, {CTX_SHORT}-token "
+              f"contexts",
+        kernel=lambda: ops.paged_attention(q, kp, vp, tables, cl),
+        plain=lambda: R.paged_attention_ref(q, kp, vp, tables, cl),
+        library=sdpa(q[:, :, None], kd, vd, mask_d),
+        library_call="scaled_dot_product_attention over pre-gathered K/V",
+        nbytes=2 * B * h * d * es + 2 * ctx * row + 4 * (B * p16 + B),
+        flops=4.0 * h * d * ctx))
+
+    # RoPE + B3: each live row writes the last 32 tokens of its context (its
+    # last two pages), the last row is padding
+    pp = (C - 1) // BS + 2
+    wpages = np.full((B, pp), n - 1)
+    wpages[:B - 1, :2] = perm[:B - 1, -2:]
+    counts = np.array([C] * (B - 1) + [0])
+    wp, ws, wc = ints(wpages), ints(np.zeros(B)), ints(counts)
+    live_c = torch.zeros(n * BS, dtype=torch.bool, device=dev)
+    live_c[torch.as_tensor(np.concatenate([
+        wpages[i, :2, None] * BS + np.arange(BS) for i in range(B - 1)])
+        .ravel(), device=dev)] = True
+    qw, kw, vw = rand(B, C, h, d), rand(B, C, hkv, d), rand(B, C, hkv, d)
+    qpos = np.full((B, C), -1)
+    qpos[:B - 1] = CTX_SHORT - C + np.arange(C)
+    pw = ints(np.maximum(qpos, 0))
+    cases.append(dict(
+        common, name="rope_kv_chunk_write", kind="rope_write",
+        written=live_c,
+        shape=f"q ({B}, {C}, {h}, {d}), k/v ({B}, {C}, {hkv}, {d})",
+        kernel=lambda: ops.rope_kv_chunk_write(qw, kw, vw, kp, vp, wp, ws, wc,
+                                               pw, theta),
+        plain=lambda: R.rope_kv_chunk_write_ref(qw, kw, vw, kp, vp, wp, ws,
+                                                wc, pw, theta),
+        library=None, library_call=NO_LIBRARY,
+        nbytes=(2 * B * C * h * d * es + 4 * int(counts.sum()) * row
+                + 4 * (B * pp + 2 * B) + 4 * B * C + 2 * d),
+        flops=3.0 * (B * C * h + int(counts.sum()) * hkv) * d, ops_dt="f32"))
+
+    # B4: the same chunk's queries over the 256-token contexts
+    qc = rand(B, C, h, d)
+    qp = ints(qpos)
+    live_q = qpos >= 0
+    mask_p = (torch.arange(CTX_SHORT, device=dev)[None, None, :]
+              <= qp.long()[:, :, None])[:, None]
+    cases.append(dict(
+        common, name="paged_prefill_attention", kind="attn", targets=(),
+        shape=f"q ({B}, {C}, {h}, {d}), {p16}-page tables, {CTX_SHORT}-"
+              f"token contexts",
+        kernel=lambda: ops.paged_prefill_attention(qc, kp, vp, tables, qp),
+        plain=lambda: R.paged_prefill_attention_ref(qc, kp, vp, tables, qp),
+        library=sdpa(qc.transpose(1, 2), kd, vd, mask_p),
+        library_call="scaled_dot_product_attention over pre-gathered K/V",
+        nbytes=(2 * int(live_q.sum()) * h * d * es
+                + 2 * int((qpos.max(axis=1) + 1).sum()) * row
+                + 4 * (B * C + B * p16)),
+        flops=4.0 * h * d * int((qpos[live_q] + 1).sum())))
     return cases
 
 
@@ -855,7 +962,8 @@ def check_case(case: dict, dt: str) -> float:
         n_diff, err = one_step(got_q, want_q)
         live = case["written"][:-BS]           # the scratch page left out
         for got, w, s in zip(targets, want, snap):
-            got, w, s = (x[:-1].reshape(-1, HKV, D) for x in (got, w, s))
+            got, w, s = (x[:-1].reshape(-1, *x.shape[2:])
+                         for x in (got, w, s))
             assert torch.equal(got[~live], s[~live]), \
                 f"{case['name']}: wrote outside its slots"
             assert not torch.equal(w[live], s[live]), \
@@ -932,7 +1040,10 @@ def f64_errors(case: dict) -> dict:
 def kernel_phase():
     rows = {}
     for dt in ("f32", "bf16"):
-        for case in kernel_cases(dt) + family_kernel_cases(dt):
+        for case in (kernel_cases(dt)
+                     + serve_shape_cases(dt, "qwen2_5_14b_serving", "ctx256")
+                     + serve_shape_cases(dt, "kimi_k2_1t_a32b", "d112")
+                     + family_kernel_cases(dt)):
             err = check_case(case, dt)
             row = rows.setdefault(case["name"], {"name": case["name"]})
             if case.get("variant"):      # a second shape of the same kernel
@@ -1027,8 +1138,10 @@ def submit(front, build_workload, n_apps, prompt_cap, decode_cap):
         front.register_graph(g, t)
 
 
-def serve_phase(card: str, kv_precision: str, params=None):
-    """Serve the four apps with a ``kv_precision`` host tier; ``params``
+def serve_phase(card: str, kv_precision: str, params=None, cfg=None,
+                n_apps: int = 4, decode_cap: int = 32):
+    """Serve ``n_apps`` apps (decode segments cut to ``decode_cap``) with a
+    ``kv_precision`` host tier on ``cfg`` (default Qwen2.5-14B); ``params``
     reuses weights already on the card. Returns the phase's results, its
     launch counts and the backend."""
     import numpy as np
@@ -1044,8 +1157,7 @@ def serve_phase(card: str, kv_precision: str, params=None):
     from repro_torch.launch.serve import MCPFrontend
     from repro_torch.models import graphs as G
 
-    n_apps = 4
-    cfg = get_config("qwen2_5_14b_serving")
+    cfg = cfg or get_config("qwen2_5_14b_serving")
     ecfg = engine_cfg(EngineConfig, TemporalConfig, GPU_BLOCKS, HOST_BLOCKS,
                       kv_precision)
     torch.cuda.reset_peak_memory_stats()
@@ -1071,7 +1183,7 @@ def serve_phase(card: str, kv_precision: str, params=None):
     eng = Engine(ecfg, A100_PCIE, backend=backend)
     front = MCPFrontend(eng)
     submit(front, build_workload, n_apps, prompt_cap=CTX_SHORT,
-           decode_cap=32)
+           decode_cap=decode_cap)
 
     # the backend's steps run as CUDA graphs: each bucket's first call
     # runs the step eagerly once and captures it, then every call replays
@@ -1177,13 +1289,14 @@ HOST_LAUNCHES = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cudaMemsetAsync"}
 
 
-def step_device_kernels(cfg, params, k_pool, v_pool) -> dict:
+def step_device_kernels(cfg, params, k_pool, v_pool, groups=None) -> dict:
     """One ``paged_decode_step`` and one ``paged_prefill_step`` at the serve
     phases' shape (``step_inputs``), from numpy inputs as the backend calls
     them, under ``torch.profiler``: eagerly, and, where
     the source tree has ``models.graphs``, replayed from its CUDA graph
     (``..._replayed``), each once to warm up and once under
-    ``device_profile``. Writes K/V into the pools' slots of those pages."""
+    ``device_profile`` (``groups`` as there). Writes K/V into the pools'
+    slots of those pages."""
     import torch
 
     from repro_torch.models import model as M
@@ -1212,7 +1325,7 @@ def step_device_kernels(cfg, params, k_pool, v_pool) -> dict:
     for name, fn in runs.items():
         fn()
         torch.cuda.synchronize()
-        out[name] = device_profile(fn, top=0)
+        out[name] = device_profile(fn, top=0, groups=groups)
     return out
 
 
@@ -1234,7 +1347,8 @@ def wall_ms(fn, n: int = 20) -> dict:
                 min=min(times), max=max(times), calls=n, all=times)
 
 
-def graph_phase(card: str, cfg, params, k_pool, v_pool) -> dict:
+def graph_phase(card: str, cfg, params, k_pool, v_pool,
+                groups=None) -> dict:
     """The compiled steps at the serve's shape, on the serve's weights and
     pools (``step_inputs``): the replayed decode step and prefill chunk
     give the eager step's output and K/V bit for bit (first call: warm-up,
@@ -1242,7 +1356,8 @@ def graph_phase(card: str, cfg, params, k_pool, v_pool) -> dict:
     eager against replayed, host time included; the device's idle share
     over 10 replayed decode steps, each read to the host as the serve reads
     its argmax, under ``torch.profiler``; and the device kernels and host
-    launch calls of one step each way (``step_device_kernels``)."""
+    launch calls of one step each way (``step_device_kernels``, its
+    profiles grouping kernels by ``groups``)."""
     import torch
 
     from repro_torch.models import graphs as G
@@ -1303,7 +1418,8 @@ def graph_phase(card: str, cfg, params, k_pool, v_pool) -> dict:
         print(f"  [{card}] 10 {label} decode steps (argmax read each step):"
               f" device busy {pr['device_ms']} ms of {w:.2f} ms wall, idle "
               f"share {pr['device_idle_share']}", flush=True)
-    out["per_step"] = per = step_device_kernels(cfg, params, k_pool, v_pool)
+    out["per_step"] = per = step_device_kernels(cfg, params, k_pool, v_pool,
+                                                groups)
     for what, r in per.items():
         print(f"  [{card}] one {what} under torch.profiler: {r['kernels']} "
               f"device kernels, {r['memcpy']} copies, {r['memset']} memsets, "
@@ -1438,7 +1554,103 @@ def migration_times(card: str, cache, reps: int = 10) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: Mamba2-130M and Hymba-1.5B prefill and decode at full size
+# phase 7: Kimi-K2 at full width through the engine
+# ---------------------------------------------------------------------------
+
+# Kimi-K2 (``configs/kimi_k2_1t_a32b.py``) at 2 of its 61 layers: each
+# layer's 384 experts are 16.9e9 parameters (33.8 GB in bf16), so 2 layers,
+# the embeddings and the attention weights take 72.8 GB of the card's 80;
+# two apps with decode segments cut to 16 tokens keep the phase near 30 s
+KIMI_LAYERS, KIMI_APPS, KIMI_DECODE = 2, 2, 16
+
+
+def kimi_phase(card: str) -> tuple:
+    """The fp16 serve (``serve_phase``) of Kimi-K2 at full width and
+    ``KIMI_LAYERS`` layers; the experts' products timed alone
+    (``expert_products``); then the graph phase at its shape on its
+    weights and pools, whose profile of each replayed step sums the device
+    time of the products' kernels: their share of the step. Returns the
+    results and the serve's launch counts; frees the weights and pools."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config("kimi_k2_1t_a32b"),
+                              num_layers=KIMI_LAYERS)
+    out, counts, backend = serve_phase(card, "fp16", cfg=cfg,
+                                       n_apps=KIMI_APPS,
+                                       decode_cap=KIMI_DECODE)
+    out["experts"] = ex = expert_products(card, cfg, backend.params)
+    print("[graphs] Kimi-K2: the compiled steps at the serve's shape, on "
+          "its weights and pools", flush=True)
+    out["graphs"] = graph_phase(card, cfg, backend.params, backend.cache.k,
+                                backend.cache.v,
+                                groups={"experts": ex["kernels"]})
+    for what in ("decode_step", "prefill_chunk"):
+        step = out["graphs"]["per_step"][f"{what}_replayed"]
+        grp = step["groups"]["experts"]
+        share = (None if not step["device_ms"]
+                 else grp["device_ms"] / step["device_ms"])
+        ex[what]["share_of_replayed_step"] = share
+        print(f"  [{card}] one {what}_replayed: the expert products' kernels"
+              f" ({grp['calls']} launches) take {grp['device_ms']:.3f} of its"
+              f" {step['device_ms']} device ms: share {share}", flush=True)
+    backend.cache = None
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def expert_products(card: str, cfg, params) -> dict:
+    """The three batched expert products of every layer (``moe_ffn``'s
+    ``bmm`` calls on the serve's weights) at the capacity the decode
+    step's and the prefill chunk's buckets give (B and B·C tokens): their
+    device ms per step from CUDA events (5 calls after a warm-up) beside
+    the bytes of expert weights they read, and the names of their kernels
+    (from one profiled call), by which the step profiles group them (a
+    profile may miss the first launches it sees, so it gives names, not
+    times)."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    lay = params["layers"]
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    nbytes = 3 * cfg.num_layers * e * d * f * lay["we1"].element_size()
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out, names = {"expert_bytes": nbytes, "expert_bound_ms": bound}, set()
+    for what, tokens in (("decode_step", B), ("prefill_chunk", B * C)):
+        cap = MOE.capacity(tokens, cfg)
+        xb = torch.randn((e, cap, d), generator=gen, device="cuda").to(
+            lay["we1"].dtype)
+
+        def products():
+            for i in range(cfg.num_layers):
+                h = torch.bmm(xb, lay["we1"][i])
+                torch.bmm(xb, lay["we3"][i])
+                torch.bmm(h, lay["we2"][i])
+
+        ms = cuda_ms(products, iters=5, warmup=1)
+        new = {t["name"] for t in device_profile(products, top=4)["top"]
+               if not t["name"].startswith("Memset")}
+        names |= new
+        out[what] = dict(tokens=tokens, capacity=cap, ms=ms,
+                         rate_tb_per_s=nbytes / ms / 1e9)
+        print(f"  [{card}] {what} (capacity {cap} of {tokens} tokens): the "
+              f"expert products of {cfg.num_layers} layers take {ms:.3f} ms "
+              f"(CUDA events) for {nbytes / 1e9:.1f} GB of weights, "
+              f"{nbytes / ms / 1e9:.2f} TB/s (bound {bound:.2f} ms at 3.35 "
+              f"TB/s); kernels {sorted(new)}", flush=True)
+    out["kernels"] = sorted(names)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: Mamba2-130M and Hymba-1.5B prefill and decode at full size
 # ---------------------------------------------------------------------------
 
 def family_run(cfg, params, tokens, steps: int):
@@ -1618,14 +1830,15 @@ def families_phase(card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: small models on the card equal the same models on the CPU
+# phase 9: small models on the card equal the same models on the CPU
 # ---------------------------------------------------------------------------
 
 def family_check():
-    """Small float32 Mamba2 and Hymba models: prefill of 150 tokens (the
-    SSD scan pads its last chunk; Hymba's 64-token window bites and the
-    SWA kernel's sequence is padded) and 3 decode steps give the same
-    logits and caches on the card as on the CPU, to 1e-4."""
+    """Small float32 Mamba2, Hymba and Mixtral models: prefill of 150
+    tokens (the SSD scan pads its last chunk; Hymba's and Mixtral's
+    64-token window bites and the SWA kernel's sequence is padded; the
+    Mixtral MoE routes through its experts' capacity) and 3 decode steps
+    give the same logits and caches on the card as on the CPU, to 1e-4."""
     import dataclasses
 
     import numpy as np
@@ -1636,7 +1849,7 @@ def family_check():
 
     torch.backends.cuda.matmul.allow_tf32 = False    # as the CPU reference
     out = {}
-    for arch in FAMILY_KERNELS:
+    for arch in (*FAMILY_KERNELS, "mixtral_8x22b"):
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
         params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         tokens = torch.as_tensor(np.random.default_rng(0).integers(
@@ -1662,10 +1875,33 @@ def family_check():
     return out
 
 
+# the small float32 models served on the card and on the CPU: dense, and
+# MoE at the default capacity factor (1.25), so that experts drop entries
+CHECK_TINY = dict(name="tiny-f32", arch_type="dense", num_layers=2,
+                  d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                  vocab_size=128, dtype="float32")
+CHECK_MODELS = (CHECK_TINY, dict(CHECK_TINY, name="tiny-moe-f32",
+                                 arch_type="moe", num_experts=4,
+                                 experts_per_token=2))
+
+
 def check_phase():
     import torch
 
     from repro_torch.configs.base import ModelConfig
+
+    # full float32 products on the card, like the CPU reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {m["name"]: serve_check(ModelConfig(**m)) for m in CHECK_MODELS}
+
+
+def serve_check(cfg) -> dict:
+    """``cfg`` served on the card (steps replayed from CUDA graphs) and on
+    the CPU (eager, through the kernels' plain versions) on the same
+    weights, with an fp16 and with an int8 host tier: the same tokens per
+    request, offloads and uploads."""
+    import torch
+
     from repro_torch.core.backend import TorchBackend
     from repro_torch.core.costmodel import A100_PCIE
     from repro_torch.core.engine import Engine, EngineConfig
@@ -1674,11 +1910,6 @@ def check_phase():
     from repro_torch.launch.serve import MCPFrontend
     from repro_torch.models import model as M
 
-    # full float32 products on the card, like the CPU reference
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = ModelConfig(name="tiny-f32", arch_type="dense", num_layers=2,
-                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
-                      vocab_size=128, dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     result = {}
     for prec in ("fp16", "int8_host"):
@@ -1703,7 +1934,7 @@ def check_phase():
         assert rg["uploads"] == rc["uploads"]
         assert gg == gc, f"{prec}: tokens on the card differ from the CPU"
         n = sum(len(t) for t in gg.values())
-        print(f"  tiny-f32 {prec}: {n} tokens of {len(gg)} requests "
+        print(f"  {cfg.name} {prec}: {n} tokens of {len(gg)} requests "
               f"identical on the card (steps replayed from CUDA graphs: "
               f"{replays}; buckets {backend.steps.captures}) and on the CPU "
               f"(eager), offloads {rg['offloads']}, uploads {rg['uploads']}",
@@ -1715,11 +1946,13 @@ def check_phase():
 
 
 def serving_phases(card: str, launches: dict, phase_s: dict):
-    """Phases 4-8: the bf16 step check, the two serve phases (the graph
-    phase after the first), the families phase and the check phase. Adds
-    their launch counts to ``launches`` and their wall times to
-    ``phase_s``; returns (step check, serve, migration, families,
-    check)."""
+    """Phases 4-9: the bf16 step check, the two Qwen2.5-14B serve phases
+    (the graph phase after the first), the Kimi-K2 serve, the families
+    phase and the check phase. Adds their launch counts to ``launches``
+    (each serve's counts zeroed before it and read after it, then summed)
+    and their wall times to ``phase_s``; returns (step check, serve,
+    migration, families, check); ``serve["kimi"]`` holds the Kimi-K2
+    phase."""
     import torch
 
     t0 = time.perf_counter()
@@ -1736,7 +1969,8 @@ def serving_phases(card: str, launches: dict, phase_s: dict):
         t0 = time.perf_counter()
         print(f"[serve {prec}]", flush=True)
         serve[prec], counts, backend = serve_phase(card, prec, params)
-        launches.update({k: counts[k] for k in SERVE_KERNELS[prec]})
+        for k in SERVE_KERNELS[prec]:
+            launches[k] = launches.get(k, 0) + counts[k]
         if prec == "fp16":
             print("[graphs] the compiled steps at the serve's shape, on its "
                   "weights and pools", flush=True)
@@ -1752,6 +1986,17 @@ def serving_phases(card: str, launches: dict, phase_s: dict):
         phase_s[f"serve_{prec}"] = time.perf_counter() - t0
     del params
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    print(f"[serve kimi] Kimi-K2 at full width, {KIMI_LAYERS} layers, "
+          f"{KIMI_APPS} apps, decode segments cut to {KIMI_DECODE}",
+          flush=True)
+    serve["kimi"], counts = kimi_phase(card)
+    serve["kimi"]["launches_of_path"] = {k: counts[k]
+                                         for k in SERVE_KERNELS["fp16"]}
+    for k in SERVE_KERNELS["fp16"]:
+        launches[k] += counts[k]
+    phase_s["serve_kimi"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     print(f"[families] {FAM_B} prompts of {FAM_S} tokens, then {FAM_STEPS} "
@@ -1823,6 +2068,10 @@ def main() -> int:
         checked, serve, migration, families, check = serving_phases(
             card, launches, phase_s)
 
+    if serve is not None:            # the D 112 rows ran in the Kimi serve
+        for name, n in serve["kimi"]["launches_of_path"].items():
+            if "d112" in rows[name]:
+                rows[name]["d112"]["launches"] = n
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = rows[name]
@@ -1835,7 +2084,7 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             library_call=r["library_call"]))
-        for extra in ("shape", "ctx256", "splits", "vs_f64_f32",
+        for extra in ("shape", "ctx256", "d112", "splits", "vs_f64_f32",
                       "vs_f64_bf16", "vs_plain_f32", "vs_plain_bf16",
                       "launch_ms_f32", "launch_ms_bf16", "library_graph_ms",
                       "mismatches_bf16", "mismatches_f32"):

@@ -7,8 +7,8 @@ discrete-event simulation). ``TorchBackend`` runs the model in PyTorch
 against a real paged KV cache, on the card through the CUDA kernels of
 ``repro_torch.kernels``, and moves offloaded KV to pinned host memory and
 back. It is the counterpart of ``repro.core.backend.JaxBackend`` for dense
-archs without a sliding window. On the card each padded step shape runs
-as one CUDA graph (``models.graphs.StepGraphs``, the counterpart of the
+and MoE archs without a sliding window. On the card each padded step
+shape runs as one CUDA graph (``models.graphs.StepGraphs``, the counterpart of the
 JAX backend's jitted steps); on the CPU the steps run eagerly. ``TemporalConfig(kv_precision=
 "int8_host")`` gives the cache an int8 host tier: ``copy_out`` and
 ``offload_blocks`` quantize on the card before the D2H copy, ``copy_in``
@@ -135,11 +135,12 @@ class TorchBackend:
 
     def __init__(self, cfg, engine_cfg, platform, seed: int = 0,
                  device="cuda", params=None):
-        if cfg.arch_type != "dense" or cfg.sliding_window is not None:
+        if cfg.arch_type not in ("dense", "moe") \
+                or cfg.sliding_window is not None:
             raise NotImplementedError(
-                f"{cfg.name}: TorchBackend serves dense archs without a "
-                "sliding window; MoE, windowed, SSM, hybrid, VLM and audio "
-                "archs come in later slices of the port")
+                f"{cfg.name}: TorchBackend serves dense and MoE archs "
+                "without a sliding window; windowed, SSM, hybrid, VLM and "
+                "audio archs come in later slices of the port")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchBackend(device='cuda') found no CUDA "

@@ -1,7 +1,7 @@
-"""Decoder stacks: the dense stack on the paged KV pool (batched decode
-and chunked suffix prefill, the serving path), and the dense-cache
-``prefill`` / ``decode_step`` of the dense, SSM (Mamba2) and hybrid
-(Hymba: attention and SSM heads in parallel) stacks.
+"""Decoder stacks: the dense and MoE stacks on the paged KV pool (batched
+decode and chunked suffix prefill, the serving path), and the
+dense-cache ``prefill`` / ``decode_step`` of the dense, MoE, SSM (Mamba2)
+and hybrid (Hymba: attention and SSM heads in parallel) stacks.
 
 The counterparts of ``repro.models.decoder``. JAX scans the stacked layer
 params; here a Python loop walks the layers. On the paged path each
@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 
 # sequence block of ops.swa_attention (its default q_block and kv_block):
@@ -38,12 +39,12 @@ SWA_BLOCK = 128
 
 
 def init_layer_stack(cfg, generator, dtype, device):
-    """Stacked (L, ...) params of a dense, SSM or hybrid stack, shaped as
-    the JAX package's ``init_layer_stack``."""
-    if cfg.arch_type not in ("dense", "ssm", "hybrid"):
+    """Stacked (L, ...) params of a dense, MoE, SSM or hybrid stack,
+    shaped as the JAX package's ``init_layer_stack``."""
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: this port runs dense, SSM and "
-            "hybrid stacks; MoE, VLM and audio come in later slices")
+            f"arch_type {cfg.arch_type!r}: this port runs dense, MoE, SSM "
+            "and hybrid stacks; VLM and audio come in a later slice")
     nl, d = cfg.num_layers, cfg.d_model
 
     def const(value):
@@ -53,7 +54,9 @@ def init_layer_stack(cfg, generator, dtype, device):
     if cfg.arch_type != "ssm":
         p.update(L.init_attn(cfg, generator, nl, dtype, device))
         p["attn_norm"] = const(0.0)
-        p.update(L.init_mlp(cfg, generator, nl, dtype, device))
+        p.update(MOE.init_moe(cfg, generator, nl, dtype, device)
+                 if cfg.arch_type == "moe"
+                 else L.init_mlp(cfg, generator, nl, dtype, device))
         p["mlp_norm"] = const(0.0)
     if cfg.arch_type in ("ssm", "hybrid"):
         p.update(init_ssm_sub(cfg, generator, nl, dtype, device))
@@ -78,9 +81,15 @@ def _layer(stacked, i):
     return {k: v[i] for k, v in stacked.items()}
 
 
-def _ffn(lp, h):
-    """Pre-norm dense SwiGLU residual block: h + mlp(rms_norm(h))."""
-    return h + L.mlp(lp, L.rms_norm(h, lp["mlp_norm"]))
+def _ffn(cfg, lp, h, valid=None):
+    """Pre-norm FFN residual block h + ffn(rms_norm(h)), where ffn is the
+    dense SwiGLU or, in a layer with experts, the MoE FFN. ``valid`` (h's
+    leading shape, True = real token) keeps the padded rows of the paged
+    steps' buckets out of the experts' capacity."""
+    hn = L.rms_norm(h, lp["mlp_norm"])
+    if "we1" in lp:
+        return h + MOE.moe_ffn(cfg, lp, hn, pad_mask=valid)
+    return h + L.mlp(lp, hn)
 
 
 def paged_decode(cfg, stacked, x, k_pool, v_pool, tables, positions,
@@ -96,6 +105,7 @@ def paged_decode(cfg, stacked, x, k_pool, v_pool, tables, positions,
     slots:         (B,) int32 absolute write slot (scratch slot = masked)
     Returns hidden (B, 1, d).
     """
+    valid = (attn_lens > 0)[:, None]                     # real rows
     h = x
     for i in range(cfg.num_layers):
         lp = _layer(stacked, i)
@@ -107,7 +117,7 @@ def paged_decode(cfg, stacked, x, k_pool, v_pool, tables, positions,
         out = ops.paged_attention(q, k_pool[i], v_pool[i], tables,
                                   attn_lens)
         h = h + L.attn_out(lp, out[:, None])
-        h = _ffn(lp, h)
+        h = _ffn(cfg, lp, h, valid)
     return h
 
 
@@ -125,6 +135,7 @@ def paged_prefill(cfg, stacked, x, k_pool, v_pool, tables, q_pos,
     Returns hidden (B, C, d).
     """
     pos = q_pos.clamp_min(0)
+    valid = q_pos >= 0                                   # real queries
     h = x
     for i in range(cfg.num_layers):
         lp = _layer(stacked, i)
@@ -135,12 +146,12 @@ def paged_prefill(cfg, stacked, x, k_pool, v_pool, tables, q_pos,
         out = ops.paged_prefill_attention(q, k_pool[i], v_pool[i], tables,
                                           q_pos)
         h = h + L.attn_out(lp, out)
-        h = _ffn(lp, h)
+        h = _ffn(cfg, lp, h, valid)
     return h
 
 
 # ---------------------------------------------------------------------------
-# dense-cache prefill and decode (dense, ssm, hybrid)
+# dense-cache prefill and decode (dense, moe, ssm, hybrid)
 # ---------------------------------------------------------------------------
 
 def _swa(q, k, v, window: int):
@@ -223,7 +234,7 @@ def prefill(cfg, stacked, x, positions, cache_size=None):
             h = h + _mix(lp, a_out, s_out)
         else:
             h = h + a_out
-        h = _ffn(lp, h)
+        h = _ffn(cfg, lp, h)
     return h, {name: torch.stack(ts) for name, ts in ys.items()}
 
 
@@ -274,5 +285,5 @@ def decode_step(cfg, stacked, cache, x, cache_len: int):
             h = h + _mix(lp, a_out, s_out)
         else:
             h = h + a_out
-        h = _ffn(lp, h)
+        h = _ffn(cfg, lp, h)
     return h, cache

@@ -9,9 +9,9 @@ serving path, the LM head, and dense-cache prefill / decode.
     logits, cache = prefill(cfg, params, {"tokens": tokens}, cache_size)
     logits, cache = decode_step(cfg, params, cache, tokens, cache_len)
 
-The paged steps serve dense stacks; ``prefill`` / ``decode_step`` run the
-dense (with or without a sliding window), SSM and hybrid stacks on text
-batches.
+The paged steps serve dense and MoE stacks; ``prefill`` / ``decode_step``
+run the dense and MoE (with or without a sliding window), SSM and hybrid
+stacks on text batches.
 
 Parameters are a dict shaped like the JAX ``init_params`` pytree:
 ``embed`` (V, d), ``unembed`` (d, V), ``final_norm`` (d,) and ``layers``,
@@ -98,7 +98,7 @@ def head_logits(cfg, params, h):
 
 
 # ---------------------------------------------------------------------------
-# dense-cache prefill and decode (dense, ssm, hybrid; text batches)
+# dense-cache prefill and decode (dense, moe, ssm, hybrid; text batches)
 # ---------------------------------------------------------------------------
 
 def _assemble_inputs(cfg, params, batch):

@@ -228,9 +228,11 @@ def test_readmitted_request_is_reprefilled(same_ids):
 
 
 def test_unported_archs_raise_and_name_the_later_slice():
+    """Windowed archs, dense or MoE, are not served by the engine path:
+    the JAX backend's paged decode attends past the window."""
     ecfg = EngineConfig(mode="baseline", gpu_blocks=8, host_blocks=8)
     for cfg in (ModelConfig(**dict(TINY, arch_type="moe", num_experts=4,
-                                   experts_per_token=2)),
+                                   experts_per_token=2, sliding_window=8)),
                 ModelConfig(**dict(TINY, sliding_window=8))):
         with pytest.raises(NotImplementedError, match="later slices"):
             TorchBackend(cfg, ecfg, A100_PCIE, device="cpu")

@@ -1,7 +1,8 @@
 """The port's dense-cache ``prefill`` / ``decode_step`` of the SSM
-(Mamba2), hybrid (Hymba) and dense (with and without a sliding window,
-float or int8 KV) stacks against ``repro.models.model`` on the same
-weights (``load_jax_params``), in float32 on the CPU.
+(Mamba2), hybrid (Hymba), dense (with and without a sliding window,
+float or int8 KV) and MoE (Mixtral with its window, Kimi-K2 without)
+stacks against ``repro.models.model`` on the same weights
+(``load_jax_params``), in float32 on the CPU.
 
 On the CPU the port's SSD scan is the token-sequential recurrence and
 the JAX model's the chunked scan, so the sums run in different orders:
@@ -36,12 +37,17 @@ CASES = {
     "dense-window": ("glm4_9b", dict(sliding_window=10), 40, 1e-4),
     "dense": ("glm4_9b", {}, 24, 1e-4),
     "dense-int8": ("glm4_9b", dict(kv_quant_int8=True), 24, 1e-4),
+    # MoE with a 64-token window < 150 tokens, through the SWA kernel
+    "mixtral": ("mixtral_8x22b", {}, 150, 1e-4),
+    "kimi": ("kimi_k2_1t_a32b", {}, 24, 1e-4),
 }
 # leaves the JAX init makes constant (zeros, ones): randomised so that the
 # comparison exercises them
 CONSTANT = ("attn_norm", "mlp_norm", "norm", "ssm_norm", "conv_b",
             "attn_out_norm", "ssm_out_norm", "final_norm")
 GAINS = ("fuse_attn", "fuse_ssm", "D")
+# leaves that stay float32 in a bf16 model
+F32_LEAVES = ("A_log", "D", "dt_bias", "wr")
 
 
 def _configs(arch, dtype="float32", **changes):
@@ -137,12 +143,14 @@ def test_sliding_window_masks_old_tokens():
         assert torch.allclose(got, base, atol=1e-5) == same, pos
 
 
-@pytest.mark.parametrize("arch", ["mamba2_130m", "hymba_1_5b"])
+@pytest.mark.parametrize("arch", ["mamba2_130m", "hymba_1_5b",
+                                  "kimi_k2_1t_a32b", "mixtral_8x22b"])
 def test_init_and_load_params_match_jax_tree(arch):
-    """bf16 SSM and hybrid trees: ``init_params`` draws every leaf of the
-    JAX pytree with its shape, dtype (``A_log``, ``D``, ``dt_bias`` float32
-    among bf16) and scale, equal where the JAX init is deterministic;
-    ``load_jax_params`` keeps dtypes and values bit for bit."""
+    """bf16 SSM, hybrid and MoE trees: ``init_params`` draws every leaf of
+    the JAX pytree with its shape, dtype (``A_log``, ``D``, ``dt_bias`` and
+    the MoE router ``wr`` float32 among bf16) and scale, equal where the
+    JAX init is deterministic; ``load_jax_params`` keeps dtypes and values
+    bit for bit."""
     jcfg, cfg = _configs(arch, dtype="bfloat16")
     tree = _np_tree(jcfg, seed=0)
     flat_j = {tuple(p.key for p in path): a for path, a in
@@ -160,7 +168,7 @@ def test_init_and_load_params_match_jax_tree(arch):
     assert set(drawn) == set(flat_j) == set(loaded)
     for key, a in flat_j.items():
         want = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
-        assert want == (torch.float32 if key[-1] in ("A_log", "D", "dt_bias")
+        assert want == (torch.float32 if key[-1] in F32_LEAVES
                         else torch.bfloat16), key
         for t in (drawn[key], loaded[key]):
             assert tuple(t.shape) == a.shape and t.dtype == want, key
@@ -176,7 +184,8 @@ def test_init_and_load_params_match_jax_tree(arch):
 
 def test_cache_specs_match_jax():
     for arch, changes in (("mamba2_130m", {}), ("hymba_1_5b", {}),
-                          ("hymba_1_5b", dict(kv_quant_int8=True))):
+                          ("hymba_1_5b", dict(kv_quant_int8=True)),
+                          ("mixtral_8x22b", {}), ("kimi_k2_1t_a32b", {})):
         jcfg, cfg = _configs(arch, dtype="bfloat16", **changes)
         jspecs = JM.cache_specs(jcfg, 3, 40)
         specs = M.cache_specs(cfg, 3, 40)
@@ -196,10 +205,8 @@ def test_cpu_prefill_launches_no_kernel_and_other_archs_raise():
     with pytest.raises(NotImplementedError, match="zero state"):
         S.ssm_mixer(cfg, {}, torch.zeros((1, 4, cfg.d_model)),
                     state=torch.zeros(1))
-    for arch in ("mixtral_8x22b", "llava_next_mistral_7b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            M.init_params(get_smoke_config(arch),
-                          torch.Generator().manual_seed(0), "cpu")
     vlm = get_smoke_config("llava_next_mistral_7b")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        M.init_params(vlm, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         M.prefill(vlm, {}, {"tokens": toks})

@@ -27,6 +27,8 @@ Marked ``gpu`` (skipped without a CUDA device):
 * replayed decode, prefill and head outputs, and the K/V they write, equal
   the eager step's bit for bit across three buckets each, and again after
   an offload and an upload rewrote pool blocks between replays;
+* so do a small MoE model's decode and prefill replays, in two buckets
+  each;
 * after N replays ``ops.launches`` holds N times the capture's counts;
 * a capture that fails raises, naming the bucket, and runs nothing.
 """
@@ -286,6 +288,10 @@ def test_bf16_step_through_kernels_matches_plain_versions(dev, monkeypatch):
 SMALL = ModelConfig(name="small-bf16", arch_type="dense", num_layers=2,
                     d_model=512, num_heads=4, num_kv_heads=2, d_ff=1024,
                     vocab_size=1024, dtype="bfloat16")
+# its MoE counterpart: the experts' capacity comes from the bucket's shape
+SMALL_MOE = dataclasses.replace(SMALL, name="small-moe-bf16",
+                                arch_type="moe", d_ff=256, num_experts=16,
+                                experts_per_token=4)
 NBLK = 64
 
 
@@ -321,10 +327,10 @@ def _prefill_args(rng, cache, bb, c, pb, b):
     return tok, tables, qpos, wpages, wstart, wcount
 
 
-def _small(dev):
-    params = M.init_params(SMALL, torch.Generator(device=dev).manual_seed(0),
+def _small(dev, cfg=SMALL):
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            dev)
-    cache = PagedKVCache(SMALL, NBLK, BT, host_blocks=16,
+    cache = PagedKVCache(cfg, NBLK, BT, host_blocks=16,
                          dtype=torch.bfloat16, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     for pool in (cache.k, cache.v):
@@ -386,6 +392,33 @@ def test_replays_equal_the_eager_step_across_buckets(dev):
     other = cache.k.clone()
     with pytest.raises(RuntimeError, match="not the tensors"):
         sg.decode(params, other, cache.v, *calls[0][1])
+
+
+@pytest.mark.gpu
+def test_moe_replays_equal_the_eager_step(dev):
+    """The MoE steps capture (their routing, sort and dispatch never wait
+    for the host) and replay to the eager step's output and K/V bit for
+    bit, in two buckets each, padded rows among them."""
+    params, cache = _small(dev, SMALL_MOE)
+    eager, sg = G.EagerSteps(SMALL_MOE), G.StepGraphs(SMALL_MOE, dev)
+    rng = np.random.default_rng(2)
+    calls = [("decode", _decode_args(rng, cache, bb, pb, b))
+             for bb, pb, b in ((2, 2, 1), (8, 8, 6))]
+    calls += [("prefill", _prefill_args(rng, cache, bb, c, pb, b))
+              for bb, c, pb, b in ((1, 8, 2, 1), (8, 32, 8, 5))]
+    for kind, args in calls * 2:
+        snap = [p.clone() for p in (cache.k, cache.v)]
+        want = getattr(eager, kind)(params, cache.k, cache.v, *args).clone()
+        want_kv = [p[:, :-1].clone() for p in (cache.k, cache.v)]
+        for p, s in zip((cache.k, cache.v), snap):
+            p.copy_(s)
+        got = getattr(sg, kind)(params, cache.k, cache.v, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (kind, args[1].shape)
+        assert torch.equal(cache.k[:, :-1], want_kv[0]), kind
+        assert torch.equal(cache.v[:, :-1], want_kv[1]), kind
+    assert sg.captures == {"decode": 2, "prefill": 2, "head": 0}
+    assert sg.replays == {"decode": 4, "prefill": 4, "head": 0}
 
 
 @pytest.mark.gpu

@@ -25,10 +25,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    2**31) and timed with CUDA events: the kernel alone inside a CUDA
    graph, and, called eagerly, its wrapper, its plain version and one
    PyTorch library call computing the same function where there is one
-   (for B1 and B3 also inside a CUDA graph, like for like with the
-   kernel); beside them its bound (bytes over 3.35 TB/s or operations over
-   the peak of their type). The fused writes' plain version is the eager
-   RoPE of q and k and the write that they replace. The int8-pool
+   (for B1, B3, B5, B6, B13a and B13b also inside a CUDA graph, like for
+   like with the kernel); beside them its bound (bytes over 3.35 TB/s or
+   operations over the peak of their type). The single-layer copies B13a
+   / B13b are also held and timed at one block (variant ``m1``, their
+   launch floor) and at 1536 blocks (``m1536``, B5 / B6's bytes in one
+   layer), each variant row with its own launches. The fused writes'
+   plain version is the eager RoPE of q and k and the write that they
+   replace. The int8-pool
    attention kernels take the float attention cases' queries, tables and
    lengths over those pools quantized on the card (bf16 B10 runs the int8
    instantiation of B4's tensor-core kernel), and their difference from
@@ -567,13 +571,15 @@ def kernel_cases(dt: str):
         kernel=lambda: ops.block_gather_layers(pools, idx),
         plain=lambda: R.block_gather_layers_ref(pools, idx),
         library=lambda: pools.index_select(1, idx64),
-        library_call="index_select", nbytes=moved, flops=0.0))
+        library_call="index_select", library_graph=True, nbytes=moved,
+        flops=0.0))
     cases.append(dict(
         name="block_scatter_layers", kind="scatter", targets=(pools,),
         kernel=lambda: ops.block_scatter_layers(pools, idx, staging),
         plain=lambda: R.block_scatter_layers_ref(pools, idx, staging),
         library=lambda: pools.index_copy_(1, idx64, staging),
-        library_call="index_copy_", nbytes=moved, flops=0.0))
+        library_call="index_copy_", library_graph=True, nbytes=moved,
+        flops=0.0))
 
     # B7/B8: the same 32 blocks x 48 layers, quantized on offload and
     # dequantized on upload; B11/B12 on the same bytes as staged blocks
@@ -659,22 +665,44 @@ def kernel_cases(dt: str):
         flops=4.0 * H * D * int((qpos[live_q] + 1).sum())))
 
     # B13a/B13b: the same 32 block ids (the last live block and the scratch
-    # block among them) in one layer of the serve pool, (2049, 16, 8, 128)
+    # block among them) in one layer of the serve pool, (2049, 16, 8, 128);
+    # variant m1: the scratch block alone (the same kernel's launch floor);
+    # variant m1536: 1536 distinct ids, B5/B6's bytes in one layer
     page1 = rand(nb, BS, HKV, D)
-    staging1 = rand(M_BLOCKS, BS, HKV, D)
-    moved1 = 2 * M_BLOCKS * BS * row + 4 * M_BLOCKS
-    cases.append(dict(
-        name="block_gather", kind="copy", targets=(),
-        kernel=lambda: ops.block_gather(page1, idx),
-        plain=lambda: R.block_gather_ref(page1, idx),
-        library=lambda: page1.index_select(0, idx64),
-        library_call="index_select", nbytes=moved1, flops=0.0))
-    cases.append(dict(
-        name="block_scatter", kind="scatter", targets=(page1,),
-        kernel=lambda: ops.block_scatter(page1, idx, staging1),
-        plain=lambda: R.block_scatter_ref(page1, idx, staging1),
-        library=lambda: page1.index_copy_(0, idx64, staging1),
-        library_call="index_copy_", nbytes=moved1, flops=0.0))
+    for m, ids, variant in (
+            (M_BLOCKS, idx, None), (1, ints([nb - 1]), "m1"),
+            (M_BLOCKS * LAYERS, ints(np.concatenate(
+                [[nb - 1, nb - 2], rng.choice(nb - 2, M_BLOCKS * LAYERS - 2,
+                                              replace=False)])), "m1536")):
+        cases += single_layer_copies(page1, ids, rand(m, BS, HKV, D),
+                                     variant, 2 * m * BS * row + 4 * m)
+    return cases
+
+
+def single_layer_copies(page1, ids, staging1, variant, moved):
+    """B13a / B13b cases: gather blocks ``ids`` of ``page1``, and scatter
+    ``staging1`` into them, in place."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+
+    ids64 = ids.long()
+    common = dict(variant=variant, library_graph=True, nbytes=moved,
+                  flops=0.0)
+    if variant:
+        common["shape"] = (f"{ids.shape[0]} blocks of "
+                           f"{tuple(page1.shape)}")
+    return [
+        dict(common, name="block_gather", kind="copy", targets=(),
+             kernel=lambda: ops.block_gather(page1, ids),
+             plain=lambda: R.block_gather_ref(page1, ids),
+             library=lambda: page1.index_select(0, ids64),
+             library_call="index_select"),
+        dict(common, name="block_scatter", kind="scatter", targets=(page1,),
+             kernel=lambda: ops.block_scatter(page1, ids, staging1),
+             plain=lambda: R.block_scatter_ref(page1, ids, staging1),
+             library=lambda: page1.index_copy_(0, ids64, staging1),
+             library_call="index_copy_")]
+
     return cases
 
 
@@ -1037,13 +1065,53 @@ def f64_errors(case: dict) -> dict:
     return out
 
 
+def time_case(case: dict, row: dict, err: float) -> None:
+    """Time a bf16 case (the kernel in a graph and eagerly, its plain
+    version, the library call), put the times and the bound into its
+    ``row`` and print them."""
+    if "splits" in case:        # runs of the split-context kernel
+        row["splits"] = case["splits"]()
+    lib = case["library"]
+    row.update(
+        ms=graph_ms(case["kernel"]), eager_ms=cuda_ms(case["kernel"]),
+        plain_ms=cuda_ms(case["plain"],
+                         iters=case.get("plain_iters", 50),
+                         warmup=min(5, case.get("plain_iters", 5))),
+        library_ms=cuda_ms(lib) if lib is not None else None,
+        library_call=case["library_call"], nbytes=case["nbytes"],
+        flops=case["flops"])
+    if "data_flops" in case:
+        row["data_flops"] = case["data_flops"]
+    if case.get("library_graph"):    # like for like with ``ms``
+        row["library_graph_ms"] = graph_ms(lib)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        case["nbytes"], case["flops"], case.get("ops_dt", "bf16"))
+    libs = f"{row['library_ms']:.4f}" if lib is not None else "-"
+    label = case["name"] + (f" ({case['variant']})"
+                            if case.get("variant") else "")
+    print(f"  {label:28s} bf16 {row['ms']:.4f} ms  eager "
+          f"{row['eager_ms']:.4f}  plain {row['plain_ms']:.4f}  "
+          f"library {libs}"
+          f"  bound {row['bound_ms']:.4f} ({row['bound_by']})  "
+          f"err bf16 {err:.3g} f32 {row['max_abs_err_f32']:.3g}"
+          + (f"  splits {row['splits']}" if "splits" in row else "")
+          + (f"  library in a graph {row['library_graph_ms']:.5f}"
+             if "library_graph_ms" in row else "")
+          + (f"  one step off: bf16 {row['mismatches_bf16']}, f32 "
+             f"{row['mismatches_f32']} elements"
+             if "mismatches_bf16" in row else ""),
+          flush=True)
+
+
 def kernel_phase():
+    from repro_torch.kernels import ops
     rows = {}
     for dt in ("f32", "bf16"):
         for case in (kernel_cases(dt)
                      + serve_shape_cases(dt, "qwen2_5_14b_serving", "ctx256")
                      + serve_shape_cases(dt, "kimi_k2_1t_a32b", "d112")
                      + family_kernel_cases(dt)):
+            before = ops.launches[case["name"]]
             err = check_case(case, dt)
             row = rows.setdefault(case["name"], {"name": case["name"]})
             if case.get("variant"):      # a second shape of the same kernel
@@ -1078,40 +1146,11 @@ def kernel_phase():
                 print(f"  {case['name']:28s} {dt}: int8 pages vs the float "
                       f"kernel on the pages before quantization: max abs "
                       f"difference {d:.4g} (no gate)", flush=True)
-            if dt != "bf16":
-                continue
-            if "splits" in case:        # runs of the split-context kernel
-                row["splits"] = case["splits"]()
-            lib = case["library"]
-            row.update(
-                ms=graph_ms(case["kernel"]), eager_ms=cuda_ms(case["kernel"]),
-                plain_ms=cuda_ms(case["plain"],
-                                 iters=case.get("plain_iters", 50),
-                                 warmup=min(5, case.get("plain_iters", 5))),
-                library_ms=cuda_ms(lib) if lib is not None else None,
-                library_call=case["library_call"], nbytes=case["nbytes"],
-                flops=case["flops"])
-            if "data_flops" in case:
-                row["data_flops"] = case["data_flops"]
-            if case.get("library_graph"):    # like for like with ``ms``
-                row["library_graph_ms"] = graph_ms(lib)
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                case["nbytes"], case["flops"], case.get("ops_dt", dt))
-            libs = f"{row['library_ms']:.4f}" if lib is not None else "-"
-            label = case["name"] + (f" ({case['variant']})"
-                                    if case.get("variant") else "")
-            print(f"  {label:28s} bf16 {row['ms']:.4f} ms  eager "
-                  f"{row['eager_ms']:.4f}  plain {row['plain_ms']:.4f}  "
-                  f"library {libs}"
-                  f"  bound {row['bound_ms']:.4f} ({row['bound_by']})  "
-                  f"err bf16 {err:.3g} f32 {row['max_abs_err_f32']:.3g}"
-                  + (f"  splits {row['splits']}" if "splits" in row else "")
-                  + (f"  library in a graph {row['library_graph_ms']:.5f}"
-                     if "library_graph_ms" in row else "")
-                  + (f"  one step off: bf16 {row['mismatches_bf16']}, f32 "
-                     f"{row['mismatches_f32']} elements"
-                     if "mismatches_bf16" in row else ""),
-                  flush=True)
+            if dt == "bf16":
+                time_case(case, row, err)
+            if case.get("variant") and case["name"] in KERNEL_PHASE_ONLY:
+                row["launches"] = (row.get("launches", 0)
+                                   + ops.launches[case["name"]] - before)
     return rows
 
 
@@ -2084,8 +2123,9 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             library_call=r["library_call"]))
-        for extra in ("shape", "ctx256", "d112", "splits", "vs_f64_f32",
-                      "vs_f64_bf16", "vs_plain_f32", "vs_plain_bf16",
+        for extra in ("shape", "ctx256", "d112", "m1", "m1536", "splits",
+                      "vs_f64_f32", "vs_f64_bf16", "vs_plain_f32",
+                      "vs_plain_bf16",
                       "launch_ms_f32", "launch_ms_bf16", "library_graph_ms",
                       "mismatches_bf16", "mismatches_f32"):
             if extra in r:

@@ -59,6 +59,9 @@ route_launches: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 # queries per thread block of the float32 and int8-page prefill kernels
 PREFILL_Q_TILE = 4
+# threads per block and vectors per thread of the single-layer block
+# copies (``_copy_split``; csrc/block_copy.cu)
+COPY_THREADS, COPY_VECS = 128, 2
 # largest head dim of the fused RoPE + KV write kernels (a block's shared
 # cos / sin table holds D floats)
 ROPE_MAX_HEAD_DIM = 1024
@@ -109,8 +112,10 @@ _SIGNATURES = {
                                       [_P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                        _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                        _P]),
-    "block_gather": ("block_copy", [_P, _P, _P, _I64, _I64, _I64, _P]),
-    "block_scatter": ("block_copy", [_P, _P, _P, _I64, _I64, _I64, _P]),
+    "block_gather": ("block_copy", [_P, _P, _P, _I64, _I64, _I64, _I, _I64,
+                                    _I64, _P]),
+    "block_scatter": ("block_copy", [_P, _P, _P, _I64, _I64, _I64, _I, _I64,
+                                     _I64, _P]),
     "ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
                               _I, _I, _I, _I, _I, _P]),
     "ssd_scan_tc": ("ssd_scan", [_P] * 10 + [_I64] + [_I] * 6 + [_P]),
@@ -610,6 +615,38 @@ def block_scatter_layers(pools, indices, staging):
     return pools
 
 
+def _copy_vec(run_bytes: int, *ptrs: int) -> int:
+    """The widest vector (16, 4 or 2 bytes) of a copy of runs of
+    ``run_bytes`` between bases ``ptrs``: every base and the run length
+    must be multiples of it."""
+    bits = run_bytes
+    for p in ptrs:
+        bits |= p
+    return 16 if bits % 16 == 0 else 4 if bits % 4 == 0 else 2
+
+
+def _copy_split(m: int, run_bytes: int, vec: int):
+    """The single-layer copies' split of each of ``m`` runs of
+    ``run_bytes`` into chunks, one CUDA thread block per (block, chunk) of
+    an (m, chunks) grid: (chunk bytes, chunks per run). A chunk is what one
+    block copies in one pass, ``COPY_THREADS * COPY_VECS`` vectors of
+    ``vec`` bytes (4 KiB of 16-byte vectors: 8 chunks of a 32 KiB run, so
+    32 blocks give 256 thread blocks, about two per SM), or the whole run
+    if that is shorter; the last chunk of a run takes what is left."""
+    chunk = min(COPY_THREADS * COPY_VECS * vec, run_bytes)
+    n_chunks = -(-run_bytes // chunk)
+    if m > 2**31 - 1 or n_chunks > 65535:
+        raise ValueError(f"block copy: {m} blocks of {n_chunks} chunks "
+                         "exceed a CUDA grid")
+    return chunk, n_chunks
+
+
+def _launch_copy(name, pages, staging, indices, n, m, run):
+    vec = _copy_vec(run, pages.data_ptr(), staging.data_ptr())
+    _launch(name, pages.device, pages.data_ptr(), staging.data_ptr(),
+            indices.data_ptr(), n, m, run, vec, *_copy_split(m, run, vec))
+
+
 def block_gather(pages, indices):
     """Gather blocks ``indices`` (M,) int32 of one layer's pool
     (N, bs, Hkv, D) into a new staging tensor (M, bs, Hkv, D)."""
@@ -621,14 +658,14 @@ def block_gather(pages, indices):
     out = torch.empty((m,) + tuple(pages.shape[1:]), dtype=pages.dtype,
                       device=pages.device)
     if m:
-        _launch(name, pages.device, pages.data_ptr(), out.data_ptr(),
-                indices.data_ptr(), n, m, run)
+        _launch_copy(name, pages, out, indices, n, m, run)
     return out
 
 
 def block_scatter(pages, indices, staging):
-    """Scatter staging (M, bs, Hkv, D) into blocks ``indices`` (M,) int32
-    of one layer's pool (N, bs, Hkv, D), in place. Returns ``pages``."""
+    """Scatter staging (M, bs, Hkv, D) into blocks ``indices`` (M,) int32,
+    distinct, of one layer's pool (N, bs, Hkv, D), in place. Returns
+    ``pages``."""
     name = "block_scatter"
     if _on_cpu(name, pages, indices, staging):
         return R.block_scatter_ref(pages, indices, staging)
@@ -638,8 +675,7 @@ def block_scatter(pages, indices, staging):
     _require(name, staging.shape == (m,) + tuple(pages.shape[1:]),
              "staging shape mismatch")
     if m:
-        _launch(name, pages.device, pages.data_ptr(), staging.data_ptr(),
-                indices.data_ptr(), n, m, run)
+        _launch_copy(name, pages, staging, indices, n, m, run)
     return pages
 
 

@@ -21,8 +21,10 @@ kernels' scalar path; pool rows they do not write stay bit for bit.
 Two cases run at Qwen2.5-14B's serve-pool size, where byte offsets pass
 2**31 and only 64-bit offset arithmetic gives the right blocks. The int8
 quantize and dequantize kernels are exact against their plain versions,
-and so are the single-layer block copies; attention over int8 pools
-takes the attention kernels' tolerances. The SSD scan (B14) is held to
+and so are the single-layer block copies (at 1, 5 and 1536 blocks, 28 KiB
+runs, ids outside the pool, and a 2.3 GB single-layer pool whose offsets
+pass 2**31; a split that misses the run is refused); attention over int8
+pools takes the attention kernels' tolerances. The SSD scan (B14) is held to
 its token-sequential plain version at 2e-3, the tolerance of the JAX
 package's ``test_ssd_scan`` (the chunked sums run in another order over
 up to 256 steps), on both of its routes (tensor cores at Mamba2's and
@@ -754,24 +756,112 @@ def test_bf16_head_dims_outside_the_tensor_cores_take_scalar_kernels(dev):
     assert ops.launches["swa_attention"] == 2
 
 
+def _copy_ids(rng, n, m):
+    """``m`` distinct block ids of an ``n``-block pool, the last two first
+    (at the largest byte offsets), the rest drawn."""
+    return np.concatenate([[n - 1, n - 2],
+                           rng.choice(n - 2, max(m - 2, 0),
+                                      replace=False)])[:m]
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("n,bs,hkv,d", [
-    (2049, 16, 8, 128),          # one layer of Qwen2.5-14B's serve pool
-    (50, 3, 1, 5),               # 4-byte (f32) and 2-byte (bf16) copies
+@pytest.mark.parametrize("n,bs,hkv,d,m", [
+    (2049, 16, 8, 128, 5),       # one layer of Qwen2.5-14B's serve pool
+    (2049, 16, 8, 128, 1),       # one block: 8 chunks
+    (2049, 16, 8, 128, 1536),    # B5/B6's bytes in one layer
+    (1025, 16, 8, 112, 32),      # Kimi-K2's 28 KiB runs (bf16)
+    (50, 3, 1, 5, 5),            # 4-byte (f32) and 2-byte (bf16) copies
 ])
-def test_block_gather_scatter(dev, dt, n, bs, hkv, d):
+def test_block_gather_scatter(dev, dt, n, bs, hkv, d, m):
+    """Gather and scatter equal their plain versions bit for bit, one
+    launch each."""
     gen = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.default_rng(9)
     pages = _rand(gen, (n, bs, hkv, d), dt, dev)
-    idx = _ints([n - 1, 7, 1, n - 2, 20], dev)          # scratch, last live
+    idx = _ints(_copy_ids(rng, n, m), dev)
+    ops.reset_launches()
     got = ops.block_gather(pages, idx)
     torch.cuda.synchronize()
+    assert ops.launches["block_gather"] == 1
     assert torch.equal(got, R.block_gather_ref(pages, idx))
-    st = _rand(gen, (5, bs, hkv, d), dt, dev)
-    dst = _ints([0, n - 1, 5, 11, n - 2], dev)
+    st = _rand(gen, (m, bs, hkv, d), dt, dev)
+    dst = _ints(rng.permutation(_copy_ids(rng, n, m)), dev)
     want = R.block_scatter_ref(pages.clone(), dst, st)
     out = ops.block_scatter(pages, dst, st)
     torch.cuda.synchronize()
+    assert ops.launches["block_scatter"] == 1
     assert out is pages and torch.equal(pages, want)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_block_gather_scatter_skip_ids_outside_the_pool(dev, dt):
+    """Ids below 0 or at N and past it are skipped: the gather's rows of
+    the others are right, the scatter writes only the others and leaves
+    every other byte of the pool as it was."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = 40
+    pages = _rand(gen, (n, 16, 8, 128), dt, dev)
+    ids = [-1, 3, n, 7, -2**31, n - 1, 2**31 - 1]
+    live = [i for i, b in enumerate(ids) if 0 <= b < n]
+    idx = _ints(ids, dev)
+    got = ops.block_gather(pages, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got[live], pages[[ids[i] for i in live]])
+    st = _rand(gen, (len(ids), 16, 8, 128), dt, dev)
+    want = pages.clone()
+    want[[ids[i] for i in live]] = st[live]
+    out = ops.block_scatter(pages, idx, st)
+    torch.cuda.synchronize()
+    assert out is pages and torch.equal(pages, want)
+
+
+def test_block_gather_scatter_past_2_31_bytes(dev):
+    """One layer's pool of 70000 blocks of 32 KiB (bf16, 2.3 GB): ids at its
+    end, whose byte offsets pass 2**31, copy the right blocks."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n = 70000
+    pages = torch.empty((n, 16, 8, 128), dtype=torch.bfloat16, device=dev)
+    for lo in range(0, n, 10000):          # drawn in parts: 0.33 GB each
+        pages[lo:lo + 10000] = _rand(gen, (min(10000, n - lo), 16, 8, 128),
+                                     "bf16", dev)
+    idx = _ints([n - 1, 65537, 1, n - 2, 2**16 + 5], dev)
+    got = ops.block_gather(pages, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, R.block_gather_ref(pages, idx))
+    st = _rand(gen, (5, 16, 8, 128), "bf16", dev)
+    dst = _ints([n - 2, 3, n - 1, 66000, 2**16], dev)
+    rows = dst.long()
+    near = pages[[n - 3, 65999, 66001]].clone()    # beside written blocks
+    ops.block_scatter(pages, dst, st)
+    torch.cuda.synchronize()
+    assert torch.equal(pages[rows], st)
+    assert torch.equal(pages[[n - 3, 65999, 66001]], near)
+
+
+def test_block_gather_refuses_a_split_that_misses_the_run(dev):
+    """The C entries check the plan they are given: chunks that do not
+    cover the run, a chunk past one pass of a thread block, or a vector
+    wider than the bases' alignment give cudaErrorInvalidValue and no
+    launch."""
+    pages = torch.zeros((4, 16, 8, 128), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((1, 16, 8, 128), dtype=torch.bfloat16, device=dev)
+    idx = _ints([2], dev)
+    run = 16 * 8 * 128 * 2
+    fn = ops._fn("block_gather")
+    stream = torch.cuda.current_stream().cuda_stream
+    for vec, chunk, n_chunks in ((16, 4096, 7), (16, 4096, 9),
+                                 (16, 8192, 4), (16, 4008, 9),
+                                 (32, 4096, 8)):
+        rc = fn(pages.data_ptr(), out.data_ptr(), idx.data_ptr(), 4, 1, run,
+                vec, chunk, n_chunks, stream)
+        assert rc == 1, (vec, chunk, n_chunks)     # cudaErrorInvalidValue
+    misaligned = out.view(-1)[1:].data_ptr()
+    assert fn(pages.data_ptr(), misaligned, idx.data_ptr(), 4, 1, run, 16,
+              4096, 8, stream) == 1
+    assert fn(pages.data_ptr(), out.data_ptr(), idx.data_ptr(), 4, 1, run,
+              16, 4096, 8, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], pages[2])
 
 
 def test_int8_attention_and_block_copy_launches_and_bad_inputs(dev):

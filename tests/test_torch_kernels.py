@@ -46,6 +46,8 @@ card), held to the Pallas kernel and the JAX oracle at test_ssd_scan's
 2e-3 and, at Mamba2-130M's and Hymba-1.5B's widths, to a float64 run of
 the plain version: no farther from it than the float32 cumsum order.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -1129,6 +1131,69 @@ def test_block_gather_scatter(dt):
     np.testing.assert_array_equal(npf(got), npf(pallas))
     np.testing.assert_array_equal(npf(got), npf(oracle))
     np.testing.assert_array_equal(npf(got)[[2, n - 1, 7, 5]], npf(tst))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_block_gather_scatter_d112(dt):
+    """Kimi-K2's blocks (bs 16, Hkv 8, D 112: 28 KiB runs in bf16, which
+    the card's copies split into 4 KiB chunks with none left over, 56 KiB
+    in f32) against the Pallas kernels and the JAX oracles."""
+    rng = np.random.default_rng(11)
+    n, bs, hkv, d = 12, 16, 8, 112
+    pages, tpages = pair(rng.standard_normal((n, bs, hkv, d)), dt)
+    idx, tidx = ints([n - 1, 4, 0, 9, 6])
+    got = ops.block_gather(tpages, tidx)
+    np.testing.assert_array_equal(npf(got), npf(jops.block_gather(pages,
+                                                                  idx)))
+    np.testing.assert_array_equal(npf(got), npf(JR.block_gather_ref(pages,
+                                                                    idx)))
+
+    st, tst = pair(rng.standard_normal((5, bs, hkv, d)), dt)
+    dst, tdst = ints([3, n - 1, 0, 8, 5])
+    oracle = JR.block_scatter_ref(pages, dst, st)
+    pallas = jops.block_scatter(pages, dst, st)
+    got = ops.block_scatter(tpages, tdst, tst)
+    assert got is tpages
+    np.testing.assert_array_equal(npf(got), npf(pallas))
+    np.testing.assert_array_equal(npf(got), npf(oracle))
+
+
+@pytest.mark.parametrize("m", [1, 32, 1536])
+@pytest.mark.parametrize("run", [32 * 1024, 28 * 1024, 30])
+def test_block_gather_scatter_split_covers_each_run(m, run):
+    """The single-layer copies' plan: (bs, Hkv, D) runs of Qwen2.5-14B
+    (32 KiB), Kimi-K2 (28 KiB) and the (50, 3, 1, 5) bf16 test pool (30
+    bytes, 2-byte vectors) cut into chunks that cover each run exactly,
+    each a whole number of vectors one thread block copies in one pass;
+    32 blocks of 32 KiB give at least 256 thread blocks (two per SM)."""
+    vec = ops._copy_vec(run, 0, 1 << 20)
+    assert vec == {32 * 1024: 16, 28 * 1024: 16, 30: 2}[run]
+    chunk, n_chunks = ops._copy_split(m, run, vec)
+    starts = [c * chunk for c in range(n_chunks)]
+    sizes = [min(chunk, run - lo) for lo in starts]
+    assert sum(sizes) == run and all(size > 0 for size in sizes)
+    assert all(size % vec == 0 for size in sizes)
+    assert chunk // vec <= ops.COPY_THREADS * ops.COPY_VECS
+    assert n_chunks <= 65535                     # grid.y
+    if run == 32 * 1024:
+        assert n_chunks == 8 and (m < 32 or m * n_chunks >= 256)
+    if run == 28 * 1024:
+        assert sizes == [4096] * 7
+
+
+def test_block_gather_scatter_split_matches_the_cuda_source():
+    """The plan's vector widths follow every base's alignment, and its
+    block size is the one the CUDA kernels were built with."""
+    assert ops._copy_vec(4096, 256, 512) == 16
+    assert ops._copy_vec(4096, 256, 516) == 4
+    assert ops._copy_vec(4100, 256, 512) == 4
+    assert ops._copy_vec(30, 256, 512) == 2
+    src = (Path(ops.__file__).parent / "csrc" / "block_copy.cu").read_text()
+    assert f"#define COPY_THREADS {ops.COPY_THREADS}\n" in src
+    assert f"#define COPY_VECS {ops.COPY_VECS}\n" in src
+    for m, run in ((2**31, 32 * 1024), (1, 65536 * 4096 + 16)):
+        with pytest.raises(ValueError, match="exceed a CUDA grid"):
+            ops._copy_split(m, run, 16)
 
 
 def test_cpu_calls_are_not_counted_as_launches():

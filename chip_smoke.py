@@ -84,6 +84,26 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    the fused writes, B2, B4, B7 and B8 must have run (the same launch
    checks), with at least one offload and one upload and wire bytes in
    whole int8 blocks; then the same timing;
+6b. front door: phase 5's weights behind ``launch.http_server.HttpServer``
+   (its pump on a background thread, 127.0.0.1, an ephemeral port) over
+   an engine with continuous batching, sessions and the prefix cache, the
+   same pools; this thread is a stdlib ``http.client`` client that
+   touches no tensor while the server runs: four /generate calls of
+   256-token prompts for 32 tokens (one async, collected through
+   /v1/result; two sharing 136 prompt tokens, so one forks a block
+   copy-on-write; one streamed and reassembled), the first again (a
+   response-cache hit: no engine work), a tool adapter's app
+   (/v1/register_graph, /v1/call_start, /v1/call_finish, /v1/states),
+   then a session (open, one turn, read, close). Every response must be
+   ok and every /generate's tokens the backend's own, the prefill logits
+   finite, nothing truncated or outstanding, and the fused writes, B2,
+   B4, B5 and B6 launched (B1 / B3 alone never); the client's wall ms per
+   call and to the first streamed chunk, tokens per wall second, the
+   server's steps and graphs and the serving report (virtual time) are
+   printed. Then, without the socket, two turns of a session through
+   ``FrontDoor.drive``: turn 2 after the forecast gap, after the turn-end
+   offload and the predictive warm, prefills less than its prompt and
+   decodes the tokens of the same turns with the KV pinned on the card;
 7. serve kimi: Kimi-K2 (MoE: 384 experts, top 8, expert d_ff 2048) at
    full width (d_model 7168, 64 / 8 heads of D 112) and 2 of its 61
    layers, random bf16 weights from seed 0, through the engine as in
@@ -111,7 +131,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    plain versions), with an fp16 and with an int8 host tier; and small
    float32 Mamba2, Hymba and Mixtral (MoE with a sliding window) models
    give the same prefill and decode logits and caches on the card as on
-   the CPU (1e-4).
+   the CPU (1e-4); and a front-door trace (``FrontDoor.drive`` over the
+   small dense model: continuous batching, a shared prefix with a
+   copy-on-write fork, a session's offload and warm, a response-cache
+   hit) gives the same tokens and counters on the card as on the CPU.
 
 B9-B13b (``paged_attention_quant``, ``paged_prefill_attention_quant``,
 ``kv_block_quant``, ``kv_block_dequant``, ``block_gather``,
@@ -122,7 +145,7 @@ writes K/V through ``rope_kv_token_write`` and ``rope_kv_chunk_write``.
 B14 and B15 are held and timed in phase 3 at the families phase's shapes
 (B14 at Mamba2's and at Hymba's; bf16 B15 is its tensor-core kernel);
 their launches are those of phase 8. The launches of the serving path's
-kernels are the sum of the three serve phases' (5, 6 and 7); a ``d112``
+kernels are the sum of the serve phases' (5, 6, 6b and 7); a ``d112``
 variant carries the Kimi-K2 serve's own.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
@@ -1593,6 +1616,380 @@ def migration_times(card: str, cache, reps: int = 10) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: the serving front door at Qwen2.5-14B's full size
+# ---------------------------------------------------------------------------
+
+# /generate prompts, the prefix two of them share (eight blocks and half a
+# ninth: the second request pins the whole blocks and forks the half one
+# copy-on-write) and the tokens each asks for
+FD_PROMPT, FD_SHARED, FD_MAX_TOKENS = 256, 136, 32
+# the tool adapter's app in ``graph_from_spec``'s wire form: a planner,
+# then an actor whose tool call the client starts and finishes over HTTP
+# while the actor decodes its first segment (long enough for the client
+# to see it running first)
+FD_GRAPH = {"name": "tool", "nodes": [
+    {"name": "plan", "agent_type": "planner", "prompt_len": 64,
+     "decode_len": 8},
+    {"name": "act", "agent_type": "actor", "prompt_len": 64,
+     "decode_segments": [96, 8], "deps": ["plan"],
+     "func_calls": [{"name": "s", "tool": "search", "predict_time": 30.0}]},
+]}
+# the session round trip: turn 1's prompt, each turn's tokens, the new
+# user tokens of turn 2, and turn 2's arrival after turn 1's end (past the
+# forecast gap, so the predictive warm lands first)
+FD_TURN1, FD_TURN_TOKENS, FD_USER2, FD_GAP_S = 200, 16, 16, 12.0
+
+
+def frontdoor_engine(cfg, params, device, gpu_blocks, host_blocks,
+                     policy="ttl"):
+    """The front door's engine: continuous batching, sessions (turn-end
+    ``policy``) and the prefix cache, over ``TorchBackend`` on ``device``."""
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.costmodel import A100_PCIE
+    from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.core.temporal import TemporalConfig
+
+    ecfg = EngineConfig.preset(
+        "tokencake", gpu_blocks=gpu_blocks, host_blocks=host_blocks,
+        continuous_batching=True, sessions=True, prefix_cache=True,
+        temporal=TemporalConfig(session_policy=policy))
+    backend = TorchBackend(cfg, ecfg, A100_PCIE, device=device,
+                           params=params)
+    return Engine(ecfg, A100_PCIE, backend=backend), backend
+
+
+class HttpClient:
+    """stdlib ``http.client`` calls to the server on 127.0.0.1:``port``;
+    each returns (status, JSON body, wall ms)."""
+
+    def __init__(self, port: int, timeout: float = 600.0):
+        self.port, self.timeout = port, timeout
+
+    def call(self, method: str, path: str, body=None):
+        import http.client
+
+        t0 = time.perf_counter()
+        c = http.client.HTTPConnection("127.0.0.1", self.port,
+                                       timeout=self.timeout)
+        try:
+            c.request(method, path,
+                      json.dumps(body) if body is not None else None,
+                      {"Content-Type": "application/json"})
+            r = c.getresponse()
+            out = json.loads(r.read())
+            return r.status, out, (time.perf_counter() - t0) * 1e3
+        finally:
+            c.close()
+
+    def stream(self, body):
+        """POST /generate?stream=1: the chunks' tokens reassembled, the
+        last chunk, and the wall ms to the first chunk and to the end."""
+        import http.client
+
+        t0 = time.perf_counter()
+        c = http.client.HTTPConnection("127.0.0.1", self.port,
+                                       timeout=self.timeout)
+        try:
+            c.request("POST", "/generate?stream=1", json.dumps(body),
+                      {"Content-Type": "application/json"})
+            r = c.getresponse()
+            assert r.status == 200, r.status
+            toks, first_ms, last = [], None, None
+            for line in r:                  # http.client de-chunks
+                if first_ms is None:
+                    first_ms = (time.perf_counter() - t0) * 1e3
+                last = json.loads(line)
+                toks.extend(last["tokens"])
+            return toks, last, first_ms, (time.perf_counter() - t0) * 1e3
+        finally:
+            c.close()
+
+    def until(self, path, done, what, timeout=600.0, every=0.005):
+        """GET ``path`` until ``done(body)``; returns the body."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            status, out, _ = self.call("GET", path)
+            assert status == 200, (path, status, out)
+            if done(out):
+                return out
+            time.sleep(every)
+        raise AssertionError(f"timed out waiting for {what}")
+
+
+def frontdoor_serve(cfg, params, device, gpu_blocks, host_blocks,
+                    seed: int = 0) -> dict:
+    """``HttpServer`` over the front door's engine, on a background thread
+    at 127.0.0.1:0; this thread is its client and touches no tensor while
+    it runs. (b) four /generate calls, the async one first, then two that
+    share ``FD_SHARED`` prompt tokens, then a streamed one; (c) the first
+    request again, served from the response cache; (a) a tool adapter
+    registering ``FD_GRAPH`` and starting and finishing its tool call;
+    (d) a session opened, one turn, read and closed. The order steps
+    around two behaviours of the reference's engine and server
+    (ROADMAP.md §3): a tool call started over HTTP leaves its agent twice
+    in the engine's running list, and the finished copy keeps
+    ``Engine.step`` busy, so (c) comes before (a); the live pump parks on
+    a pending session timer even with runnable work, until the timer's
+    wall deadline, so the session comes last. After the server
+    stops: every response ok, every /generate's tokens the backend's own,
+    the cache hit without engine work, no truncated prompt, nothing
+    outstanding. Returns the client's wall times and the report."""
+    import numpy as np
+
+    from repro_torch.launch.http_server import HttpServer, synth_tokens
+    from repro_torch.launch.response_cache import request_key
+
+    eng, backend = frontdoor_engine(cfg, params, device, gpu_blocks,
+                                    host_blocks)
+    # prefill logits of finished requests (their invalidation drops them)
+    kept = {}
+    invalidate = backend.invalidate
+
+    def keep_logits(rid):
+        if rid in backend.last_prefill_logits:
+            kept[rid] = backend.last_prefill_logits[rid]
+        invalidate(rid)
+    backend.invalidate = keep_logits
+
+    rng = np.random.default_rng(seed)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+    shared = toks(FD_SHARED)
+    prompts = [shared + toks(FD_PROMPT - FD_SHARED),
+               shared + toks(FD_PROMPT - FD_SHARED),
+               toks(FD_PROMPT), toks(FD_PROMPT)]
+    bodies = [{"prompt": p, "max_tokens": FD_MAX_TOKENS} for p in prompts]
+    srv = HttpServer(engine=eng)
+    port = srv.start_background()
+    cl = HttpClient(port)
+    gen, ms = {}, {}
+    try:
+        # (b) the burst
+        t0 = time.perf_counter()
+        status, out, _ = cl.call("POST", "/generate?async=1", bodies[3])
+        assert status == 200 and out["ok"], (status, out)
+        gid = out["id"]
+        for i in (0, 1):
+            status, gen[i], ms[i] = cl.call("POST", "/generate", bodies[i])
+            assert status == 200, (status, gen[i])
+        toks2, last, first_ms, ms[2] = cl.stream(bodies[2])
+        gen[2] = dict(last, tokens=toks2, ok=True, stream_first_ms=first_ms)
+        gen[3] = cl.until(f"/v1/result/{gid}",
+                          lambda o: o.get("status") == "finished",
+                          "the async generation")
+        ms[3] = (time.perf_counter() - t0) * 1e3
+        burst_s = time.perf_counter() - t0
+        rids = {i: cl.call("GET", f"/v1/result/{gen[i]['id']}")[1]["rid"]
+                for i in range(4)}
+        # (c) the first request again, once the pump has parked
+        cl.until("/v1/report", lambda o: o["serving"]["outstanding"] == 0,
+                 "the burst to drain")
+        while True:
+            steps0 = srv.steps
+            time.sleep(0.2)
+            if srv.steps == steps0:
+                break
+        work0 = (eng.metrics["decoded_tokens"], len(eng.apps),
+                 eng.metrics["prefill_tokens"])
+        status, hit, ms_hit = cl.call("POST", "/generate", bodies[0])
+        # the handler wakes the pump even for a hit: at most one iteration
+        # that finds nothing to do, and no engine work
+        time.sleep(0.2)
+        hit_steps = srv.steps - steps0
+        hit_work = (eng.metrics["decoded_tokens"], len(eng.apps),
+                    eng.metrics["prefill_tokens"])
+        assert status == 200 and hit["ok"] and hit["cached"] is True, hit
+        # (a) the tool adapter
+        status, reg, _ = cl.call("POST", "/v1/register_graph",
+                                 {"graph": FD_GRAPH})
+        assert status == 200 and reg["ok"], reg
+        act = f"{reg['app_id']}/act"
+        cl.until("/v1/states", lambda o: o.get(act) == "running",
+                 "the actor to run")
+        tool = [cl.call("POST", "/v1/call_start",
+                        {"rid": act, "estimate": 30.0}),
+                cl.call("POST", "/v1/call_finish", {"rid": act})]
+        states = cl.until(
+            "/v1/states", lambda o: o and all(
+                s == "finished" for r, s in o.items()
+                if r.startswith(reg["app_id"])), "the tool app to finish")
+        # (d) a session: open, one turn, read, close
+        session = [cl.call("POST", "/v1/session/open", {"sid": "chat1"})]
+        session.append(cl.call("POST", "/generate", {
+            "prompt": toks(FD_TURN1), "max_tokens": FD_TURN_TOKENS,
+            "session_id": "chat1"}))
+        session.append(cl.call("GET", "/v1/session/chat1"))
+        session.append(cl.call("POST", "/v1/session/chat1/close"))
+        rep_status, rep, _ = cl.call("GET", "/v1/report")
+    finally:
+        srv.stop()
+    assert not srv._thread.is_alive(), "the server thread did not stop"
+    for status, body, _ in session + tool:
+        assert status == 200 and body["ok"], (status, body)
+    assert session[2][1]["turns"] == 1, session[2][1]
+    assert rep_status == 200 and rep["serving"]["outstanding"] == 0, \
+        rep["serving"]
+    for i, body in gen.items():
+        assert body["ok"], body
+        n = len(body["tokens"])
+        assert n == FD_MAX_TOKENS, (i, n)
+        # the backend's own tokens, never the placeholder the front door
+        # falls back to when the backend has none for the rid
+        assert rids[i] in backend.generated, (i, rids[i])
+        assert body["tokens"] == backend.generated[rids[i]][:n], i
+        assert body["tokens"] != synth_tokens(request_key(bodies[i]), n), i
+    assert gen[2]["done"] and gen[2]["n_tokens"] == FD_MAX_TOKENS
+    assert hit["tokens"] == gen[0]["tokens"]
+    assert hit_work == work0, (work0, hit_work)
+    assert hit_steps <= 1, hit_steps
+    assert rep["serving"]["cache_hits"] == 1, rep["serving"]
+    assert rep["cow_forks"] >= 1, rep["cow_forks"]
+    assert rep["truncated_prompt_tokens"] == 0
+    assert backend.truncated_prompt_tokens == 0
+    assert kept, "no prefill logits"
+    for rid, logits in kept.items():
+        assert logits.shape == (cfg.vocab_size,), rid
+        assert bool(np.isfinite(logits).all()), rid
+    generated = sum(len(gen[i]["tokens"]) for i in range(4))
+    sv = rep["serving"]
+    out = dict(
+        generate_wall_ms={i: ms[i] for i in range(4)},
+        stream_first_chunk_ms=gen[2]["stream_first_ms"],
+        cache_hit_wall_ms=ms_hit, cache_hit_server_steps=hit_steps,
+        burst_wall_s=burst_s, burst_tokens=generated,
+        tokens_per_wall_s=generated / burst_s, server_steps=srv.steps,
+        graphs_captured=dict(getattr(backend.steps, "captures", {})),
+        tool_app_states=states, serving=sv,
+        engine=dict(cow_forks=rep["cow_forks"],
+                    prefix_hits=rep["prefix_hits"],
+                    offloads=rep["offloads"], uploads=rep["uploads"],
+                    decoded_tokens=rep["decoded_tokens"],
+                    session=session[2][1]))
+    backend.cache = None
+    return out
+
+
+def session_turns(cfg, params, device, gpu_blocks, host_blocks,
+                  policy: str, seed: int = 1) -> dict:
+    """Two turns of one session through ``FrontDoor.drive`` (virtual
+    time): turn 2 = turn 1's prompt and reply plus ``FD_USER2`` new
+    tokens, arriving ``FD_GAP_S`` after turn 1 ends."""
+    import numpy as np
+
+    from repro_torch.launch.http_server import FrontDoor
+
+    rng = np.random.default_rng(seed)
+    p1 = [int(t) for t in rng.integers(0, cfg.vocab_size, FD_TURN1)]
+    user2 = [int(t) for t in rng.integers(0, cfg.vocab_size, FD_USER2)]
+    eng, backend = frontdoor_engine(cfg, params, device, gpu_blocks,
+                                    host_blocks, policy)
+    fd = FrontDoor(eng, cache=None)
+    g1 = fd.submit({"prompt": p1, "max_tokens": FD_TURN_TOKENS,
+                    "session_id": "s"})
+    fd.drive()
+    resp1 = list(backend.generated[g1.rid][:FD_TURN_TOKENS])
+    p2 = p1 + resp1 + user2
+    before = eng.metrics["prefill_tokens"]
+    g2 = fd.submit({"prompt": p2, "max_tokens": FD_TURN_TOKENS,
+                    "session_id": "s"}, arrival=g1.finish + FD_GAP_S)
+    fd.drive()
+    assert g1.status == g2.status == "finished", (g1.status, g2.status)
+    out = dict(policy=policy, turn1=resp1,
+               turn2=list(backend.generated[g2.rid][:FD_TURN_TOKENS]),
+               turn2_prompt=len(p2),
+               turn2_prefill=eng.metrics["prefill_tokens"] - before,
+               sessions=dict(eng.session_metrics),
+               d2h_bytes=eng.metrics["d2h_bytes"],
+               h2d_bytes=eng.metrics["h2d_bytes"])
+    backend.cache = None
+    return out
+
+
+def session_roundtrip(cfg, params, device, gpu_blocks, host_blocks) -> dict:
+    """The session's turn-end offload and predictive warm (``ttl``) give
+    the tokens of the same two turns with the KV pinned on the device
+    (``pin``): the round trip moves the bytes exactly."""
+    runs = {}
+    for policy in ("ttl", "pin"):
+        runs[policy] = session_turns(cfg, params, device, gpu_blocks,
+                                     host_blocks, policy)
+        gc.collect()
+        if device == "cuda":
+            import torch
+            torch.cuda.empty_cache()
+    ttl, pin = runs["ttl"], runs["pin"]
+    assert ttl["sessions"]["session_offloads"] >= 1, ttl["sessions"]
+    assert ttl["sessions"]["session_warms"] == 1, ttl["sessions"]
+    assert pin["sessions"]["session_offloads"] == 0, pin["sessions"]
+    assert ttl["turn2_prefill"] < ttl["turn2_prompt"], ttl
+    assert (ttl["turn1"], ttl["turn2"]) == (pin["turn1"], pin["turn2"]), \
+        "the offloaded and warmed session decodes other tokens than the " \
+        "pinned one"
+    return runs
+
+
+def frontdoor_phase(card: str, params) -> tuple:
+    """Phase 6b on phase 5's Qwen2.5-14B weights: ``frontdoor_serve`` over
+    the 2048-block pool and the pinned 1024-block host pool, then
+    ``session_roundtrip``; launch counts zeroed before and read after each
+    (the serving path's kernels must all have run over the socket, B1 / B3
+    alone never). Returns the phase's results and its launch counts."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config("qwen2_5_14b_serving")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = frontdoor_serve(cfg, params, "cuda", GPU_BLOCKS, HOST_BLOCKS)
+    counts = dict(ops.launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    missing = [k for k in SERVE_KERNELS["fp16"] if counts[k] <= 0]
+    assert not missing, f"kernels never launched over the socket: {missing}"
+    assert counts["kv_token_write"] == counts["kv_chunk_write"] == 0, \
+        "the front door wrote K/V through the standalone B1 / B3"
+    ms = out["generate_wall_ms"]
+    sv = out["serving"]
+    print(f"  [{card}] /generate wall ms (client, {FD_PROMPT}-token "
+          f"prompts, {FD_MAX_TOKENS} tokens): async {ms[3]:.1f} (to its "
+          f"result), plain {ms[0]:.1f} / {ms[1]:.1f} (shared prefix), "
+          f"stream first chunk {out['stream_first_chunk_ms']:.1f} of "
+          f"{ms[2]:.1f}; {out['burst_tokens']} tokens in "
+          f"{out['burst_wall_s']:.2f} s ({out['tokens_per_wall_s']:.1f} "
+          f"tokens per wall second); cache hit {out['cache_hit_wall_ms']:.1f}"
+          f" ms, {out['cache_hit_server_steps']} server steps, no engine "
+          f"work", flush=True)
+    print(f"  server steps {out['server_steps']}, graphs captured "
+          f"{out['graphs_captured']}; serving (virtual time, A100 cost "
+          f"model, not card time): accepted {sv['accepted']}, completed "
+          f"{sv['completed']}, cache hits {sv['cache_hits']}, rejected "
+          f"{sv['rejected']}, ttft p50 {sv['ttft']['p50']:.3f} s, tpot p50 "
+          f"{sv['tpot']['p50']:.4f} s; engine {out['engine']}; launches "
+          f"{ {k: counts[k] for k in SERVE_KERNELS['fp16']} }", flush=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out["session_roundtrip"] = session_roundtrip(cfg, params, "cuda",
+                                                 GPU_BLOCKS, HOST_BLOCKS)
+    rt_counts = dict(ops.launches)
+    ttl = out["session_roundtrip"]["ttl"]
+    print(f"  [{card}] session round trip (FrontDoor.drive, virtual time): "
+          f"turn 2 prefilled {ttl['turn2_prefill']} of {ttl['turn2_prompt']}"
+          f" prompt tokens after {ttl['sessions']['session_offloads']} "
+          f"offload(s) and {ttl['sessions']['session_warms']} warm; its "
+          f"tokens equal the pinned run's; {time.perf_counter() - t0:.1f} s, "
+          f"launches { {k: rt_counts[k] for k in SERVE_KERNELS['fp16']} }",
+          flush=True)
+    for k, n in rt_counts.items():
+        counts[k] = counts.get(k, 0) + n
+    out["launches"] = counts
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
 # phase 7: Kimi-K2 at full width through the engine
 # ---------------------------------------------------------------------------
 
@@ -1984,14 +2381,91 @@ def serve_check(cfg) -> dict:
     return result
 
 
+def frontdoor_trace(cfg, params, device) -> dict:
+    """A ``FrontDoor.drive`` trace (virtual time) on the front door's
+    engine: two requests sharing 40 prompt tokens (two blocks and half a
+    third: a prefix hit and a copy-on-write fork) under continuous
+    batching, a session whose turn-end offload and predictive warm come
+    before its second turn, and a repeat served from the response cache.
+    Returns every response's tokens, the backend's tokens per request and
+    the engine's, the sessions' and the front door's counters."""
+    import numpy as np
+
+    from repro_torch.launch.http_server import FrontDoor
+    from repro_torch.launch.response_cache import ResponseCache
+
+    rng = np.random.default_rng(3)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+    eng, backend = frontdoor_engine(cfg, params, device, 96, 64)
+    fd = FrontDoor(eng, cache=ResponseCache(ttl=None))
+    shared, p1 = toks(40), toks(44)
+    a = {"prompt": shared + toks(9), "max_tokens": 8}
+    fd.submit(a, arrival=0.0)
+    fd.submit({"prompt": shared + toks(12), "max_tokens": 8}, arrival=0.05)
+    s1 = fd.submit({"prompt": p1, "max_tokens": 8, "session_id": "s"},
+                   arrival=0.1)
+    fd.drive()
+    fd.submit(a)
+    p2 = p1 + list(backend.generated[s1.rid][:8]) + toks(16)
+    fd.submit({"prompt": p2, "max_tokens": 8, "session_id": "s"},
+              arrival=s1.finish + FD_GAP_S)
+    rep = fd.drive()
+    out = dict(responses={g.gid: (g.status, g.result["tokens"])
+                          for g in fd.gens.values()},
+               generated={r: list(t) for r, t in backend.generated.items()},
+               metrics=dict(eng.metrics), sessions=dict(eng.session_metrics),
+               front={k: rep[k] for k in ("accepted", "completed",
+                                          "cache_hits", "outstanding")})
+    backend.cache = None
+    return out
+
+
+def frontdoor_check() -> dict:
+    """``frontdoor_trace`` of the small float32 dense model on the card
+    (steps replayed from CUDA graphs) and on the CPU (plain versions), on
+    the same weights: the same tokens per request and the same counters;
+    the trace forked, warmed its session and hit the response cache."""
+    import torch
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(**CHECK_TINY)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in params.items()}
+        runs[dev] = frontdoor_trace(cfg, p, dev)
+    cpu, card = runs["cpu"], runs["cuda"]
+    assert card == cpu, "the front door's trace on the card differs from " \
+        "the CPU's"
+    m, sess, front = card["metrics"], card["sessions"], card["front"]
+    assert m["cow_forks"] >= 1 and sess["session_warms"] == 1, (m, sess)
+    assert front["cache_hits"] == 1 and front["outstanding"] == 0, front
+    n = sum(len(t) for t in card["generated"].values())
+    print(f"  {cfg.name} front door: {n} tokens of "
+          f"{len(card['generated'])} requests and every counter identical "
+          f"on the card and on the CPU (cow_forks {m['cow_forks']}, "
+          f"session offloads {sess['session_offloads']} / warms "
+          f"{sess['session_warms']}, cache hits {front['cache_hits']})",
+          flush=True)
+    return dict(requests=len(card["generated"]), tokens=n,
+                cow_forks=m["cow_forks"], sessions=sess, front=front)
+
+
 def serving_phases(card: str, launches: dict, phase_s: dict):
     """Phases 4-9: the bf16 step check, the two Qwen2.5-14B serve phases
-    (the graph phase after the first), the Kimi-K2 serve, the families
-    phase and the check phase. Adds their launch counts to ``launches``
-    (each serve's counts zeroed before it and read after it, then summed)
-    and their wall times to ``phase_s``; returns (step check, serve,
-    migration, families, check); ``serve["kimi"]`` holds the Kimi-K2
-    phase."""
+    (the graph phase after the first), the front door on their weights,
+    the Kimi-K2 serve, the families phase and the check phase. Adds their
+    launch counts to ``launches`` (each serve's counts zeroed before it
+    and read after it, then summed) and their wall times to ``phase_s``;
+    returns (step check, serve, migration, families, check);
+    ``serve["frontdoor"]`` and ``serve["kimi"]`` hold those phases."""
     import torch
 
     t0 = time.perf_counter()
@@ -2023,7 +2497,17 @@ def serving_phases(card: str, launches: dict, phase_s: dict):
         gc.collect()
         torch.cuda.empty_cache()
         phase_s[f"serve_{prec}"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    print(f"[front door] Qwen2.5-14B behind HttpServer on 127.0.0.1, "
+          f"continuous batching, sessions, prefix and response caches; "
+          f"client order (b) (c) (a) (d)", flush=True)
+    serve["frontdoor"], counts = frontdoor_phase(card, params)
+    for k in SERVE_KERNELS["fp16"]:
+        launches[k] += counts[k]
+    phase_s["frontdoor"] = time.perf_counter() - t0
     del params
+    gc.collect()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2048,6 +2532,7 @@ def serving_phases(card: str, launches: dict, phase_s: dict):
 
     print("[check]", flush=True)
     check = check_phase()
+    check["frontdoor"] = frontdoor_check()
     check["families"] = family_check()
     return checked, serve, migration, families, check
 

@@ -8,10 +8,17 @@ counted in ``frontend_bad_calls``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode tokencake \\
         --apps 20 --qps 1.0 [--real-compute [--device cuda|cpu]] [--prefetch]
+    PYTHONPATH=src python -m repro_torch.launch.serve --replicas 3 \\
+        [--route affinity|round_robin] [--link rdma_100g|tcp_25g|none]
+    PYTHONPATH=src python -m repro_torch.launch.serve --http PORT [--sessions]
 
 ``--real-compute`` serves a small dense model through ``TorchBackend`` on
-the card (or on the CPU with ``--device cpu``). The cluster and HTTP modes
-of the JAX launcher are not ported yet.
+the card (or on the CPU with ``--device cpu``). ``--replicas N`` routes the
+workload over N simulated engine replicas (``cluster.Router``, behind
+``ClusterFrontend``). ``--http PORT`` serves the §6.2 endpoints and
+``/generate`` over HTTP (``launch.http_server``) from the engine on the
+A100 cost model, as the JAX launcher does; a real-compute server is built
+in code: ``HttpServer(engine=Engine(..., backend=TorchBackend(...)))``.
 """
 from __future__ import annotations
 
@@ -92,6 +99,81 @@ class MCPFrontend:
         return rep
 
 
+class ClusterFrontend:
+    """The same §6.2 surface over a replicated deployment: one router,
+    N engines. ``call_start``/``call_finish`` locate the replica that
+    owns the rid (the router may have placed any node anywhere), and the
+    observability endpoints add the routing plane — placement decisions,
+    cross-replica pulls, summary staleness — next to each replica's
+    transfer ledger."""
+
+    def __init__(self, router):
+        self.router = router
+        self.bad_calls = 0
+
+    def register_graph(self, graph, arrival: float = 0.0,
+                       prompts=None) -> str:
+        return self.router.submit_app(graph, arrival, prompts)
+
+    def _find(self, rid: str):
+        for h in self.router.replicas:
+            req = h.engine._find(rid)
+            if req is not None:
+                return h.engine, req
+        return None, None
+
+    def call_start(self, rid: str, estimate: float | None = None) -> dict:
+        eng, req = self._find(rid)
+        if req is None or req.state != ReqState.RUNNING \
+                or req.next_fc() is None:
+            self.bad_calls += 1
+            return {"ok": False, "op": "call_start", "rid": rid,
+                    "error": "unknown rid or bad state"}
+        if estimate is not None:
+            req.next_fc().predict_time = estimate
+        eng.call_start(req)
+        return {"ok": True, "op": "call_start", "rid": rid}
+
+    def call_finish(self, rid: str, elapsed: float | None = None) -> dict:
+        eng, req = self._find(rid)
+        if req is None or req.current_fc is None:
+            self.bad_calls += 1
+            return {"ok": False, "op": "call_finish", "rid": rid,
+                    "error": "unknown rid or no call in flight"}
+        eng.call_finish(req)
+        return {"ok": True, "op": "call_finish", "rid": rid}
+
+    def states(self, verbose: bool = False) -> dict:
+        reqs = {}
+        for h in self.router.replicas:
+            for app in h.engine.apps.values():
+                for r in app.node_request.values():
+                    reqs[r.rid] = r.state.value
+        if not verbose:
+            return reqs
+        return {
+            "requests": reqs,
+            "routing": dict(self.router.metrics),
+            "replicas": [
+                {"index": h.index,
+                 "load": h.load(),
+                 "clock": h.engine.clock,
+                 "summary_age_s": (h.engine.clock
+                                   - self.router.summaries[h.index]
+                                   .refreshed_at),
+                 "transfers": h.engine.transfer_report()}
+                for h in self.router.replicas],
+            "frontend_bad_calls": self.bad_calls,
+        }
+
+    def report(self) -> dict:
+        rep = self.router.report()
+        rep["frontend_bad_calls"] = self.bad_calls
+        rep["transfers"] = [h.engine.transfer_report()
+                            for h in self.router.replicas]
+        return rep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="tokencake",
@@ -111,9 +193,26 @@ def main(argv=None):
     ap.add_argument("--prefetch", action="store_true",
                     help="host-tier promotion + workflow-aware KV prefetch")
     ap.add_argument("--sessions", action="store_true",
-                    help="multi-turn sessions with TTL-scheduled KV pinning")
+                    help="multi-turn sessions with TTL-scheduled KV "
+                         "pinning (session_id on /generate + "
+                         "/v1/session/* endpoints)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="cluster mode: route over N engine replicas")
+    ap.add_argument("--route", default="affinity",
+                    choices=["affinity", "round_robin"],
+                    help="cluster placement policy")
+    ap.add_argument("--link", default="rdma_100g",
+                    choices=["rdma_100g", "tcp_25g", "none"],
+                    help="inter-replica fabric for KV pulls")
     ap.add_argument("--json", action="store_true")
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve the §6.2 endpoints + /generate over HTTP "
+                         "on PORT instead of running a simulated workload "
+                         "(see docs/SERVING_API.md)")
     args = ap.parse_args(argv)
+    if args.real_compute and (args.http is not None or args.replicas > 1):
+        ap.error("--real-compute serves one engine in-process; --http and "
+                 "--replicas run the simulated engine")
 
     plat = PLATFORMS[args.platform]
     kw = dict(gpu_blocks=args.blocks, max_running=64)
@@ -122,6 +221,17 @@ def main(argv=None):
                   temporal=TemporalConfig(prefetch=True))
     if args.sessions:
         kw.update(sessions=True)
+    if args.http is not None:
+        import asyncio
+
+        from repro_torch.launch.http_server import HttpServer
+        srv = HttpServer(port=args.http,
+                         engine_kw=dict(kw, continuous_batching=True))
+        log.info("serving on http://%s:%d", srv.host, args.http)
+        asyncio.run(srv.serve_forever())
+        return None
+    if args.replicas > 1:
+        return _serve_cluster(args, plat, kw)
     ecfg = EngineConfig.preset(args.mode, **kw)
     backend = None
     if args.real_compute:
@@ -149,6 +259,38 @@ def main(argv=None):
               f"offloads {rep['offloads']} "
               f"prefetch {rep['prefetch_hits']}/{rep['prefetch_issued']} "
               f"effective-util {rep['effective_utilization']:.1%}")
+    return rep
+
+
+def _serve_cluster(args, plat, kw) -> dict:
+    from repro_torch.cluster import Router
+    from repro_torch.core.costmodel import make_link
+
+    pull = args.link != "none"
+    if pull:
+        kw = dict(kw, remote_pull=True)
+    router = Router(
+        lambda i: Engine(EngineConfig.preset(args.mode, **kw), plat),
+        args.replicas, policy=args.route,
+        link=make_link(plat, args.link) if pull else None)
+    front = ClusterFrontend(router)
+    for t, g in build_workload(args.app, qps=args.qps, n_apps=args.apps,
+                               seed=1):
+        front.register_graph(g, t)
+    router.run(max_time=1e6)
+    rep = front.report()
+    if args.json:
+        print(json.dumps(rep, indent=1))
+    else:
+        r = rep["routing"]
+        print(f"[{args.mode} x{args.replicas} {args.route}] "
+              f"{rep['apps_finished']}/{args.apps} apps, "
+              f"avg {rep['avg_latency']:.1f}s p90 {rep['p90_latency']:.1f}s "
+              f"skew {rep['load_skew']:.2f} "
+              f"affinity {r['affinity_hits']}/{r['placements']} "
+              f"overrides {r['overrides']} spills {r['spills']} "
+              f"pulls {rep['pulls']} ({rep['cross_replica_bytes']} B) "
+              f"stale {r['staleness_avg_s']:.1f}s")
     return rep
 
 

@@ -3,7 +3,8 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
   package ``repro``, and importing the port loads no JAX module.
 * The framework-free modules the port copies (control plane, configs, the
-  workload samplers) equal their ``src/repro`` originals, read as text,
+  workload samplers, the HTTP front door and response cache, the cluster
+  plane) equal their ``src/repro`` originals, read as text,
   after renaming ``repro.`` to ``repro_torch.``: a change to one side
   without the other fails here.
 """
@@ -24,6 +25,9 @@ COPIED = [f"core/{m}.py" for m in (
     "request", "spatial", "temporal", "policies", "transfers")]
 COPIED += ["kvcache/prefix_store.py", "kvcache/radix_index.py",
            "data/workloads.py"]
+COPIED += ["launch/http_server.py", "launch/response_cache.py"]
+COPIED += [f"cluster/{m}.py" for m in (
+    "__init__", "placement", "replica", "router", "summary")]
 COPIED += sorted(str(p.relative_to(SRC / "repro"))
                  for p in (SRC / "repro" / "configs").glob("*.py"))
 
@@ -54,6 +58,7 @@ def test_port_imports_no_jax_and_no_repro():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.core.backend, repro_torch.launch.serve\n"
+            "import repro_torch.launch.http_server, repro_torch.cluster\n"
             "import repro_torch.kernels.ops, repro_torch.configs.base\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
@@ -78,3 +83,10 @@ def test_copied_workload_samplers_equal_original():
     for fn in ("prompt_lengths", "output_lengths"):
         assert inspect.getsource(getattr(tp, fn)) == \
             inspect.getsource(getattr(jp, fn))
+
+
+def test_cluster_frontend_equals_original():
+    from repro.launch import serve as js
+    from repro_torch.launch import serve as ts
+    assert inspect.getsource(ts.ClusterFrontend) == \
+        rename(inspect.getsource(js.ClusterFrontend))

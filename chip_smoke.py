@@ -134,7 +134,47 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    the CPU (1e-4); and a front-door trace (``FrontDoor.drive`` over the
    small dense model: continuous batching, a shared prefix with a
    copy-on-write fork, a session's offload and warm, a response-cache
-   hit) gives the same tokens and counters on the card as on the CPU.
+   hit) gives the same tokens and counters on the card as on the CPU; a
+   small float32 LLaVA (16 patches and 150 text tokens, past its 64-token
+   window, B15 launched on the card) and Whisper give the same prefill
+   and decode logits and caches, and one float32 train step of the
+   MiniCPM smoke config (remat on) the same loss, gradient norm,
+   parameters and AdamW moments, on the card as on the CPU (1e-4);
+10. vlm and audio: LLaVA-NeXT-Mistral-7B (32 layers, d_model 4096, 32 /
+   8 heads, window 4096) and Whisper-large-v3 (32 encoder and 32 decoder
+   layers, d_model 1280, 20 heads) at full width and depth, random bf16
+   weights from seed 0, each freed before the next: LLaVA's
+   ``models.model.prefill`` of 2 requests of 2880 patch embeddings
+   (0.02 N(0, 1), as the token pipeline draws them) and 2048 text tokens,
+   4928 positions, so its window takes effect, then 32 greedy
+   ``decode_step``s; Whisper's encoder over 4 x 1500 frames alone, then
+   ``prefill`` of 16-token prompts (the encoder again) and 64 greedy
+   decode steps. Launch counts are zeroed just before each run and read
+   just after: B15 exactly once per LLaVA layer, no other kernel (decode
+   attention and the encoder-decoder are plain PyTorch, as in the JAX
+   model); logits finite, caches of ``cache_specs``' shapes; prefill,
+   encode and per-step decode ms, tokens per second and peak memory
+   printed, and one prefill, one decode step and Whisper's encoder under
+   ``torch.profiler`` (device busy ms, idle share, B15's and the GEMMs'
+   device ms, the top kernels);
+11. train: ``repro_torch.launch.train.main`` in this process with
+   ``--arch minicpm_2b --scale full --steps 10 --batch 8 --seq 256``:
+   MiniCPM-2B at full width and depth (3.0 B parameters, remat, the WSD
+   schedule, float32 AdamW state), no kernel of the port launched. First
+   at the launcher's default lr, 1e-3, tuned at the smoke width: a
+   contrast run, held only to finite losses, whose loss climbs past
+   ln(vocab) at this width and depth (as the JAX package's does at a
+   width the CPU holds, ``tests/test_torch_lr_width.py``). Then at
+   ``TRAIN_LR`` = 1e-5, small enough for Adam's first steps here: every
+   step's loss and gradient norm finite, no step's loss above
+   max(first loss, ln(vocab)) + ``TRAIN_NOISE``, the last loss below the
+   first, and after step 1 every parameter leaf's gradient non-zero and
+   finite (read from AdamW's first moment, (1 - b1) times the clipped
+   gradient); s per step, tokens per second, peak memory and model FLOPs
+   (8 N tokens: forward, backward and the remat forward, N the
+   parameters that multiply) over time as a share of the bf16 peak
+   printed; then one more step split into the gradients and AdamW (CUDA
+   events) and one under ``torch.profiler``.
 
 B9-B13b (``paged_attention_quant``, ``paged_prefill_attention_quant``,
 ``kv_block_quant``, ``kv_block_dequant``, ``block_gather``,
@@ -143,14 +183,16 @@ JAX package calls them, so their launches are those of phase 3. So do
 B1 and B3 alone (``kv_token_write``, ``kv_chunk_write``): the serve
 writes K/V through ``rope_kv_token_write`` and ``rope_kv_chunk_write``.
 B14 and B15 are held and timed in phase 3 at the families phase's shapes
-(B14 at Mamba2's and at Hymba's; bf16 B15 is its tensor-core kernel);
-their launches are those of phase 8. The launches of the serving path's
-kernels are the sum of the serve phases' (5, 6, 6b and 7); a ``d112``
-variant carries the Kimi-K2 serve's own.
+(B14 at Mamba2's and at Hymba's; bf16 B15 is its tensor-core kernel), and
+B15 also at LLaVA's (variant ``llava``: phase 10's two requests of
+4928 positions padded to 4992, H 32, D 128, window 4096); their launches are those of
+phases 8 and 10, the ``llava`` variant's phase 10's. The launches of
+the serving path's kernels are the sum of the serve phases' (5, 6, 6b
+and 7); a ``d112`` variant carries the Kimi-K2 serve's own.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``. With ``--only
-kernels`` phases 4-9 are skipped and every launch count in that line is
+kernels`` phases 4-11 are skipped and every launch count in that line is
 the kernel phase's. ``--out PATH`` also writes the full results as JSON.
 Engine latencies in the serve report are virtual time from the A100 cost
 model, not card time.
@@ -160,6 +202,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -241,6 +284,34 @@ FAMILY_KERNELS = {"mamba2_130m": ("ssd_scan",),
 # the families phase's profile sums the device time of the kernels whose
 # names hold these
 FAMILY_GROUPS = {"B14": ("ssd_",), "B15": ("swa_attention",)}
+# phase 10: LLaVA-NeXT-Mistral-7B prefills VLM_B requests of its 2880
+# patch embeddings and VLM_TEXT text tokens (4928 positions: its 4096-token
+# window takes effect), then decodes VLM_STEPS greedy tokens; B15 must run
+# once per layer of the prefill. Whisper-large-v3 encodes AUDIO_B x 1500
+# frames, prefills AUDIO_PROMPT-token prompts and decodes AUDIO_STEPS tokens
+VLM_B, VLM_PATCHES, VLM_TEXT, VLM_STEPS = 2, 2880, 2048, 32
+VLM_POSITIONS = VLM_PATCHES + VLM_TEXT
+AUDIO_B, AUDIO_PROMPT, AUDIO_STEPS = 4, 16, 64
+# phase 10's profiles sum the device time of the kernels whose names hold
+# these: B15, and the GEMMs (cuBLAS's nvjet and xmma kernels, CUTLASS)
+VLM_AUDIO_GROUPS = {"B15": ("swa_attention",),
+                    "GEMM": ("gemm", "nvjet", "cutlass")}
+# phase 11: the launcher's arguments (MiniCPM-2B at full size: remat on,
+# the WSD schedule, float32 AdamW state)
+TRAIN_ARGS = ["--arch", "minicpm_2b", "--scale", "full", "--steps", "10",
+              "--batch", "8", "--seq", "256"]
+# Adam's first update is lr * sign(g) on every entry, whatever the
+# weight's scale; the output projections are drawn at 1/sqrt(fan_in * L),
+# so at MiniCPM-2B's widths and depth (fan_in 2304 / 5760, L 40) such an
+# update moves their output by up to lr * fan_in * sqrt(L) of its own
+# size, and the launcher warms up over only 5 of these 10 steps. The
+# launcher's default lr (1e-3, tuned at the smoke width) and 3e-5 make
+# the loss climb past its start; 1e-5 is the largest lr of the sweep in
+# PERF.md at which no step did
+TRAIN_LR = 1e-5
+# how far one 2048-token batch's mean loss may sit above another's at the
+# same weights, in the no-divergence check
+TRAIN_NOISE = 0.1
 # B14 against its token-sequential plain version: the tolerance of the JAX
 # package's test_ssd_scan (the sums run in another order); B15 in bf16 may
 # differ from its plain version by one bf16 step of the output (2**-7 of
@@ -863,8 +934,9 @@ def serve_shape_cases(dt: str, arch: str, variant: str):
 
 def family_kernel_cases(dt: str):
     """B14 at Mamba2-130M's and at Hymba-1.5B's prefill shapes and B15 at
-    Hymba-1.5B's (heads repeated to MHA layout), as the families phase
-    calls them, in the same form as ``kernel_cases``. B14's operations are
+    Hymba-1.5B's and at LLaVA-NeXT-Mistral-7B's (variant ``llava``; heads
+    repeated to MHA layout), as the families phase and phase 10 call them,
+    in the same form as ``kernel_cases``. B14's operations are
     those its data needs (``data_flops``): the lower triangle of c b^T
     once per (row, chunk), and per (row, head, chunk) the triangle of w x,
     the state update and, after the first chunk, c state^T; its
@@ -918,21 +990,28 @@ def family_kernel_cases(dt: str):
             data_flops=gram + intra + inter + update,
             flops=6 * (gram + inter) + px * (intra + update), ops_dt="bf16"))
 
-    cfg = get_config("hymba_1_5b")
-    hq, d, w = cfg.num_heads, cfg.head_dim, cfg.sliding_window
-    qs, ks, vs = (randn(FAM_B, FAM_S, hq, d).to(td) for _ in "qkv")
-    i = torch.arange(FAM_S, device=dev)
-    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
-    pairs = FAM_B * hq * sum(min(t + 1, w) for t in range(FAM_S))
-    cases.append(dict(
-        name="swa_attention", kind="attn", targets=(), tol=TOL_ONE_STEP[dt],
-        shape=f"hymba_1_5b: q/k/v ({FAM_B}, {FAM_S}, {hq}, {d}), window {w}",
-        kernel=lambda: ops.swa_attention(qs, ks, vs, w),
-        plain=lambda: R.swa_attention_ref(qs, ks, vs, w),
-        library=sdpa(qs.transpose(1, 2), ks.transpose(1, 2),
-                     vs.transpose(1, 2), band),
-        library_call="scaled_dot_product_attention with a band mask",
-        nbytes=4 * qs.numel() * es, flops=4.0 * d * pairs))
+    # B15 at Hymba-1.5B's prefill shape, and at LLaVA-NeXT-Mistral-7B's
+    # (phase 10: VLM_B requests of 2880 patches and 2048 text tokens,
+    # padded to a multiple of the kernel's 128-row block)
+    for arch, variant, bsz, s in (("hymba_1_5b", None, FAM_B, FAM_S),
+                                  ("llava_next_mistral_7b", "llava", VLM_B,
+                                   -(-VLM_POSITIONS // 128) * 128)):
+        cfg = get_config(arch)
+        hq, d, w = cfg.num_heads, cfg.head_dim, cfg.sliding_window
+        qs, ks, vs = (randn(bsz, s, hq, d).to(td) for _ in "qkv")
+        i = torch.arange(s, device=dev)
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+        pairs = bsz * hq * sum(min(t + 1, w) for t in range(s))
+        cases.append(dict(
+            name="swa_attention", variant=variant, kind="attn", targets=(),
+            tol=TOL_ONE_STEP[dt], plain_iters=50 if variant is None else 5,
+            shape=f"{arch}: q/k/v ({bsz}, {s}, {hq}, {d}), window {w}",
+            kernel=functools.partial(ops.swa_attention, qs, ks, vs, w),
+            plain=functools.partial(R.swa_attention_ref, qs, ks, vs, w),
+            library=sdpa(qs.transpose(1, 2), ks.transpose(1, 2),
+                         vs.transpose(1, 2), band),
+            library_call="scaled_dot_product_attention with a band mask",
+            nbytes=4 * qs.numel() * es, flops=4.0 * d * pairs))
     return cases
 
 
@@ -2089,8 +2168,9 @@ def expert_products(card: str, cfg, params) -> dict:
 # phase 8: Mamba2-130M and Hymba-1.5B prefill and decode at full size
 # ---------------------------------------------------------------------------
 
-def family_run(cfg, params, tokens, steps: int):
-    """``prefill`` of ``tokens`` into a cache sized for ``steps`` more
+def family_run(cfg, params, batch, steps: int):
+    """``prefill`` of ``batch`` (``tokens``, and a VLM's ``patches`` or
+    an audio model's ``frames``) into a cache sized for ``steps`` more
     tokens, then ``steps`` greedy ``decode_step``s. Returns (prefill
     logits, decode logits per step, generated tokens, cache, prefill
     seconds, decode seconds), both times ending in a synchronise."""
@@ -2098,9 +2178,11 @@ def family_run(cfg, params, tokens, steps: int):
 
     from repro_torch.models import model as M
 
-    s = tokens.shape[1]
+    tokens = batch["tokens"]
+    s = tokens.shape[1] + (batch["patches"].shape[1]
+                           if "patches" in batch else 0)
     t0 = time.perf_counter()
-    logits, cache = M.prefill(cfg, params, {"tokens": tokens}, s + steps)
+    logits, cache = M.prefill(cfg, params, batch, s + steps)
     if tokens.is_cuda:
         torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
@@ -2188,7 +2270,7 @@ def families_phase(card: str):
         tokens = torch.randint(0, cfg.vocab_size, (FAM_B, FAM_S),
                                generator=gen, device="cuda",
                                dtype=torch.int32)
-        family_run(cfg, params, tokens[:, :256], 2)     # warm-up, not timed
+        family_run(cfg, params, {"tokens": tokens[:, :256]}, 2)  # warm-up
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         n_params = sum(t.numel() for t in params["layers"].values()) + \
@@ -2196,7 +2278,7 @@ def families_phase(card: str):
 
         ops.reset_launches()
         logits, steps, toks, cache, prefill_s, decode_s = family_run(
-            cfg, params, tokens, FAM_STEPS)
+            cfg, params, {"tokens": tokens}, FAM_STEPS)
         launches = dict(ops.launches)
         routes = dict(ops.route_launches)
         peak = torch.cuda.max_memory_allocated()
@@ -2292,11 +2374,9 @@ def family_check():
             0, cfg.vocab_size, (2, 150)), dtype=torch.int32)
         runs = {}
         for dev in ("cpu", "cuda"):
-            p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
-                     if isinstance(v, dict) else v.to(dev))
-                 for k, v in params.items()}
-            lg, steps, toks, cache, _, _ = family_run(cfg, p,
-                                                      tokens.to(dev), 3)
+            p = to_device(params, dev)
+            lg, steps, toks, cache, _, _ = family_run(
+                cfg, p, {"tokens": tokens.to(dev)}, 3)
             runs[dev] = [t.cpu() for t in [lg, *steps]], \
                 {k: v.cpu() for k, v in cache.items()}
         (lc, cc), (lg, cg) = runs["cpu"], runs["cuda"]
@@ -2309,6 +2389,103 @@ def family_check():
               f"difference {err:.3g})", flush=True)
         out[arch] = dict(max_abs_err=err)
     return out
+
+
+def to_device(tree, dev):
+    """A copy of a nested dict of tensors on ``dev``."""
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda v: v.to(dev, copy=True), tree)
+
+
+def vlm_audio_check():
+    """Small float32 LLaVA (16 patches and 150 text tokens: its 64-token
+    window bites, and B15's sequence is padded to 256) and Whisper (32
+    frames, 12-token prompts): prefill and 3 decode steps give the same
+    logits and caches on the card as on the CPU, to 1e-4; the LLaVA
+    prefill on the card launches B15 once per layer."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # as the CPU reference
+    out = {}
+    for arch, s in (("llava_next_mistral_7b", 150), ("whisper_large_v3", 12)):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        batch = TokenPipeline(cfg, 2, s, seed=0).next_batch()
+        del batch["targets"]
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            ops.reset_launches()
+            lg, steps, _, cache, _, _ = family_run(
+                cfg, to_device(params, dev), to_device(batch, dev), 3)
+            runs[dev] = [t.cpu() for t in [lg, *steps]], \
+                {k: v.cpu() for k, v in cache.items()}
+        want = cfg.num_layers if cfg.sliding_window else 0
+        assert ops.launches["swa_attention"] == want, (arch, ops.launches)
+        (lc, cc), (lg, cg) = runs["cpu"], runs["cuda"]
+        err = 0.0
+        for a, b in list(zip(lg, lc)) + [(cg[k], cc[k]) for k in cc]:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+            err = max(err, float((a - b).abs().max()))
+        print(f"  {cfg.name} f32: prefill and 3 decode steps on the card "
+              f"match the CPU (logits and caches {sorted(cc)}, max abs "
+              f"difference {err:.3g}; B15 launches on the card {want})",
+              flush=True)
+        out[arch] = dict(max_abs_err=err, swa_launches=want)
+    return out
+
+
+def train_check():
+    """One float32 train step (AdamW after autograd through the remat
+    forward) of the MiniCPM smoke config gives the same loss, gradient
+    norm, parameters and moments on the card as on the CPU, to 1e-4; the
+    step launches no kernel of the port."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoder as DEC
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("minicpm_2b"),
+                              dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = TokenPipeline(cfg, 2, 64, seed=0).next_batch()
+    opt = O.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    runs = {}
+    DEC.set_remat(True)
+    try:
+        for dev in ("cpu", "cuda"):
+            ops.reset_launches()
+            p = to_device(params, dev)
+            st = O.init_opt_state(opt, p)
+            p, st, m = make_train_step(cfg, opt)(p, st, to_device(batch, dev))
+            runs[dev] = [m["loss"], m["grad_norm"], *O.leaves(p),
+                         *O.leaves(st["mu"]), *O.leaves(st["nu"])]
+            assert not any(ops.launches.values()), ops.launches
+    finally:
+        DEC.set_remat(False)
+    err = 0.0
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+        err = max(err, float((a.cpu() - b).abs().max()))
+    print(f"  {cfg.name} f32: one train step (remat on) on the card matches "
+          f"the CPU (loss {float(runs['cpu'][0]):.5f}, grad norm "
+          f"{float(runs['cpu'][1]):.5f}, {len(runs['cpu']) - 2} parameter "
+          f"and moment tensors; max abs difference {err:.3g})", flush=True)
+    return dict(max_abs_err=err, loss=float(runs["cpu"][0]))
 
 
 # the small float32 models served on the card and on the CPU: dense, and
@@ -2352,9 +2529,7 @@ def serve_check(cfg) -> dict:
         runs = {}
         for dev in ("cpu", "cuda"):
             ecfg = engine_cfg(EngineConfig, TemporalConfig, 96, 128, prec)
-            p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
-                     if isinstance(v, dict) else v.to(dev))
-                 for k, v in params.items()}
+            p = to_device(params, dev)
             backend = TorchBackend(cfg, ecfg, A100_PCIE, device=dev,
                                    params=p)
             eng = Engine(ecfg, A100_PCIE, backend=backend)
@@ -2437,9 +2612,7 @@ def frontdoor_check() -> dict:
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     runs = {}
     for dev in ("cpu", "cuda"):
-        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
-                 if isinstance(v, dict) else v.to(dev))
-             for k, v in params.items()}
+        p = to_device(params, dev)
         runs[dev] = frontdoor_trace(cfg, p, dev)
     cpu, card = runs["cpu"], runs["cuda"]
     assert card == cpu, "the front door's trace on the card differs from " \
@@ -2534,7 +2707,282 @@ def serving_phases(card: str, launches: dict, phase_s: dict):
     check = check_phase()
     check["frontdoor"] = frontdoor_check()
     check["families"] = family_check()
+    check["vlm_audio"] = vlm_audio_check()
+    check["train"] = train_check()
     return checked, serve, migration, families, check
+
+
+# ---------------------------------------------------------------------------
+# phase 10: LLaVA-NeXT-Mistral-7B and Whisper-large-v3 at full size
+# ---------------------------------------------------------------------------
+
+def vlm_audio_phase(card: str) -> tuple:
+    """Each model once at full width and depth (random bf16 weights from
+    seed 0): LLaVA's prefill of ``VLM_B`` requests of patches and text and
+    ``VLM_STEPS`` greedy decode steps; Whisper's encoder alone, then its
+    prefill (the encoder again, then the decoder) and ``AUDIO_STEPS``
+    decode steps. Returns the results and B15's launches in LLaVA's run."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import model as M
+
+    results = {}
+    for arch in ("llava_next_mistral_7b", "whisper_large_v3"):
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, gen, "cuda")
+        n_params = M.param_count(params)
+        if cfg.arch_type == "vlm":
+            assert cfg.num_patch_tokens == VLM_PATCHES
+            b, s, steps, extra = VLM_B, VLM_TEXT, VLM_STEPS, "patches"
+            n_extra = cfg.num_patch_tokens
+        else:
+            b, s, steps, extra = AUDIO_B, AUDIO_PROMPT, AUDIO_STEPS, "frames"
+            n_extra = cfg.encoder_frames
+        # as the pipeline draws them: 0.02 N(0, 1) in float32
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int32),
+                 extra: 0.02 * torch.randn((b, n_extra, cfg.d_model),
+                                           generator=gen, device="cuda")}
+        family_run(cfg, params, {"tokens": batch["tokens"][:, :8],
+                                 extra: batch[extra][:, :64]}, 2)  # warm-up
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        ops.reset_launches()
+        out = {}
+        if cfg.arch_type == "audio":
+            t0 = time.perf_counter()
+            enc = ED.encode(cfg, params, batch["frames"].to(torch.bfloat16))
+            torch.cuda.synchronize()
+            out["encode_ms"] = (time.perf_counter() - t0) * 1e3
+            assert bool(torch.isfinite(enc).all()), arch
+            del enc
+        logits, step_logits, toks, cache, prefill_s, decode_s = family_run(
+            cfg, params, batch, steps)
+        n_pos = s + (n_extra if cfg.arch_type == "vlm" else 0)
+        launches = {k: n for k, n in ops.launches.items() if n}
+        peak = torch.cuda.max_memory_allocated()
+        # where the time goes: one prefill, one decode step (the last
+        # position again) and Whisper's encoder under the profiler; the
+        # idle share compares device time with the unprofiled wall time
+        last = toks[:, -2]
+        prof = {
+            "prefill": (prefill_s * 1e3, lambda: M.prefill(
+                cfg, params, batch, n_pos + steps)),
+            "decode_step": (decode_s * 1e3 / steps, lambda: M.decode_step(
+                cfg, params, cache, last, n_pos + steps - 1))}
+        if cfg.arch_type == "audio":
+            prof["encode"] = (out["encode_ms"], lambda: ED.encode(
+                cfg, params, batch["frames"].to(torch.bfloat16)))
+        for what, (wall_ms, fn) in prof.items():
+            pr = prof[what] = device_profile(fn, groups=VLM_AUDIO_GROUPS)
+            pr["unprofiled_wall_ms"] = wall_ms
+            pr["device_idle_share"] = (None if pr["device_ms"] is None
+                                       else 1.0 - pr["device_ms"] / wall_ms)
+            print(f"  [{card}] {cfg.name} {what}: device busy "
+                  f"{pr['device_ms']} ms of {wall_ms:.2f} ms wall (idle "
+                  f"share {pr['device_idle_share']}; {pr['kernels']} "
+                  f"kernels); " + "".join(
+                      f"{k} {g['device_ms']:.3f} ms in {g['calls']} kernels; "
+                      for k, g in pr["groups"].items())
+                  + "top kernels " + "; ".join(
+                      f"{t['name']} {t['device_ms']:.3f} ms x{t['calls']}"
+                      for t in pr["top"][:5]), flush=True)
+        out["profile"] = prof
+
+        assert logits.shape == (b, 1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all()), arch
+        assert all(bool(torch.isfinite(lg).all()) for lg in step_logits), arch
+        assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+        assert {k: (tuple(t.shape), t.dtype) for k, t in cache.items()} == \
+            M.cache_specs(cfg, b, n_pos + steps), arch
+        # the windowed prefill runs B15 once per layer; nothing else of the
+        # port runs a kernel here (decode attention and the encoder-decoder
+        # are plain PyTorch, as in the JAX model)
+        want = {"swa_attention": cfg.num_layers} if cfg.sliding_window \
+            else {}
+        assert launches == want, (arch, launches)
+        out.update(
+            model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+            params=n_params, batch=b, prompt_tokens=s, positions=n_pos,
+            decode_steps=steps, setup_s=setup_s,
+            prefill_ms=prefill_s * 1e3,
+            decode_ms_per_step=decode_s * 1e3 / steps,
+            decode_tokens_per_s=b * steps / decode_s,
+            max_memory_allocated_bytes=peak, launches=launches)
+        results[arch] = out
+        print(f"  [{card}] {cfg.name}: {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {n_params / 1e9:.3f} B params in bf16; "
+              + (f"encode {b} x {n_extra} frames {out['encode_ms']:.2f} ms; "
+                 if "encode_ms" in out else "")
+              + f"prefill {b} x {n_pos} positions {prefill_s * 1e3:.2f} ms"
+              + (" (encoder included)" if cfg.arch_type == "audio" else "")
+              + f", decode {decode_s * 1e3 / steps:.2f} ms per step "
+              f"({b * steps / decode_s:.1f} tokens/s), peak device memory "
+              f"{peak / 1e9:.2f} GB; launches {launches}", flush=True)
+        del params, cache, logits, step_logits, batch, prof, last
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results, results["llava_next_mistral_7b"]["launches"].get(
+        "swa_attention", 0)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: MiniCPM-2B trained at full size
+# ---------------------------------------------------------------------------
+
+def train_phase(card: str) -> dict:
+    """``repro_torch.launch.train.main(TRAIN_ARGS)`` in this process, first
+    at the launcher's default lr (finite losses only), then with ``--lr
+    TRAIN_LR``: every step's loss and gradient norm finite, no step's loss
+    above max(first loss, ln(vocab)) + ``TRAIN_NOISE``, the last loss below
+    the first, and after step 1 every parameter leaf's gradient non-zero
+    and finite, read from AdamW's first moment (which then holds (1 - b1)
+    times the clipped gradient, exactly zero where the gradient is); no
+    kernel of the port runs. Prints both runs' losses, and for the second
+    s per step, tokens per second, peak memory and model FLOPs over time
+    against the bf16 peak."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models import decoder as DEC
+    from repro_torch.models import model as M
+
+    ln_v = math.log(get_config("minicpm_2b").vocab_size)
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    tokens = int(TRAIN_ARGS[TRAIN_ARGS.index("--batch") + 1]) \
+        * int(TRAIN_ARGS[TRAIN_ARGS.index("--seq") + 1])
+
+    out = T.main(TRAIN_ARGS)
+    default_losses = [h["loss"] for h in out[2]]
+    del out
+    assert all(map(math.isfinite, default_losses)), default_losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  [{card}] MiniCPM-2B at the launcher's default lr 1e-3: loss "
+          + " ".join(f"{x:.4f}" for x in default_losses)
+          + f"; highest {max(default_losses):.4f}, ln(vocab) {ln_v:.4f}",
+          flush=True)
+
+    seen = {}
+
+    def on_step(step, params, opt_state, metrics):
+        if step == 1:
+            seen["remat"] = DEC.REMAT
+            seen["leaves"] = {
+                name: (bool(torch.isfinite(mu).all()),
+                       bool(mu.abs().max() > 0))
+                for name, mu in M.named_leaves(opt_state["mu"])}
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params, opt_state, hist = T.main(TRAIN_ARGS + ["--lr", str(TRAIN_LR)],
+                                     on_step=on_step)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    assert not any(ops.launches.values()), ops.launches
+    assert [h["step"] for h in hist] == list(range(1, steps + 1)), hist
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    assert all(map(math.isfinite, losses + gnorms)), (losses, gnorms)
+    ceiling = max(losses[0], ln_v) + TRAIN_NOISE
+    assert max(losses) <= ceiling, (f"loss climbed past {ceiling:.4f}",
+                                    losses)
+    assert losses[-1] < losses[0], losses
+    assert seen["remat"], "the launcher did not turn remat on"
+    bad = [k for k, ok in seen["leaves"].items() if ok != (True, True)]
+    assert not bad, f"zero or non-finite gradients after step 1: {bad}"
+    step_s = [b["wall_s"] - a["wall_s"] for a, b in zip(hist, hist[1:])]
+    steady = sum(step_s) / len(step_s)
+    split = train_step_split(card, params, opt_state)
+    n = M.param_count(params)
+    n_mm = n - params["embed"].numel()       # the embedding is a gather
+    # 6 N per token for the forward and backward, 2 N for the remat forward
+    flops = 8.0 * n_mm * tokens
+    share = flops / (steady * PEAK_FLOPS["bf16"])
+    print(f"  [{card}] MiniCPM-2B at lr {TRAIN_LR:g}: {n / 1e9:.3f} B "
+          f"params, {steps} steps of {tokens} tokens; loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f" (ceiling {ceiling:.4f}); grad norm {gnorms[0]:.3f} -> "
+          f"{gnorms[-1]:.3f}; step 1 {hist[0]['wall_s']:.3f} s, then "
+          f"{steady:.4f} s per step ({tokens / steady:.0f} tokens/s); model "
+          f"FLOPs 8 N tokens = {flops:.4g} per step, "
+          f"{flops / steady / 1e12:.1f} TFLOP/s, {share:.4f} of the bf16 "
+          f"peak; peak device memory {peak / 1e9:.2f} GB; "
+          f"{len(seen['leaves'])} leaves with non-zero finite gradients",
+          flush=True)
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params=n, matmul_params=n_mm, steps=steps,
+                tokens_per_step=tokens, lr=TRAIN_LR, ln_vocab=ln_v,
+                default_lr_losses=default_losses, losses=losses,
+                grad_norms=gnorms, first_step_s=hist[0]["wall_s"],
+                s_per_step=steady, step_s=step_s,
+                tokens_per_s=tokens / steady, model_flops_per_step=flops,
+                bf16_peak_share=share, max_memory_allocated_bytes=peak,
+                total_s=total_s, leaves=len(seen["leaves"]), split=split)
+
+
+def train_step_split(card: str, params, opt_state) -> dict:
+    """Where a train step's time goes, on phase 11's model and state (one
+    more step each, remat on, a fresh batch of the same shape): the
+    gradients (forward and backward, ``make_grad_step``) and the AdamW
+    update timed apart with CUDA events, then a whole step under
+    ``torch.profiler`` (device busy ms, idle share, the top kernels)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import decoder as DEC
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_grad_step, make_train_step
+
+    cfg = get_config("minicpm_2b")
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    opt = O.AdamWConfig(lr=TRAIN_LR, schedule="wsd", warmup_steps=5,
+                        total_steps=steps,
+                        state_dtype=cfg.optimizer_state_dtype)
+    batch = to_device(TokenPipeline(
+        cfg, int(TRAIN_ARGS[TRAIN_ARGS.index("--batch") + 1]),
+        int(TRAIN_ARGS[TRAIN_ARGS.index("--seq") + 1]), seed=1)
+        .next_batch(), "cuda")
+    DEC.set_remat(True)
+    try:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        _, _, grads = make_grad_step(cfg)(params, batch)
+        ev[1].record()
+        O.apply_adamw(opt, params, grads, opt_state)
+        ev[2].record()
+        ev[2].synchronize()
+        del grads
+        fwd_bwd, adamw = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        step = make_train_step(cfg, opt)
+        prof = device_profile(lambda: step(params, opt_state, batch), top=10)
+    finally:
+        DEC.set_remat(False)
+    prof["device_idle_share"] = (None if prof["device_ms"] is None else
+                                 1.0 - prof["device_ms"]
+                                 / prof["profiled_wall_ms"])
+    print(f"  [{card}] one MiniCPM-2B train step: forward + backward "
+          f"{fwd_bwd:.1f} ms, AdamW {adamw:.1f} ms (CUDA events); under the "
+          f"profiler device busy {prof['device_ms']} of "
+          f"{prof['profiled_wall_ms']:.1f} ms wall ({prof['kernels']}"
+          f" kernels); top kernels " + "; ".join(
+              f"{t['name']} {t['device_ms']:.2f} ms x{t['calls']}"
+              for t in prof["top"]), flush=True)
+    return dict(fwd_bwd_ms=fwd_bwd, adamw_ms=adamw, profile=prof)
 
 
 def main() -> int:
@@ -2587,10 +3035,27 @@ def main() -> int:
     if args.only == "kernels":
         launches = dict(ops.launches)
         checked = serve = migration = families = check = None
+        vlm_audio = trained = None
     else:
         launches = {k: ops.launches[k] for k in KERNEL_PHASE_ONLY}
         checked, serve, migration, families, check = serving_phases(
             card, launches, phase_s)
+        t0 = time.perf_counter()
+        print(f"[vlm and audio] LLaVA-NeXT-Mistral-7B: {VLM_B} requests of "
+              f"{VLM_PATCHES} patches and {VLM_TEXT} text tokens, "
+              f"{VLM_STEPS} greedy decode steps; Whisper-large-v3: "
+              f"{AUDIO_B} x 1500 frames, {AUDIO_PROMPT}-token prompts, "
+              f"{AUDIO_STEPS} decode steps", flush=True)
+        vlm_audio, n = vlm_audio_phase(card)
+        launches["swa_attention"] += n
+        rows["swa_attention"]["llava"]["launches"] = n
+        phase_s["vlm_audio"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        print(f"[train] python -m repro_torch.launch.train "
+              f"{' '.join(TRAIN_ARGS)} [--lr {TRAIN_LR:g}], in this "
+              f"process", flush=True)
+        trained = train_phase(card)
+        phase_s["train"] = time.perf_counter() - t0
 
     if serve is not None:            # the D 112 rows ran in the Kimi serve
         for name, n in serve["kimi"]["launches_of_path"].items():
@@ -2608,7 +3073,8 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             library_call=r["library_call"]))
-        for extra in ("shape", "ctx256", "d112", "m1", "m1536", "splits",
+        for extra in ("shape", "ctx256", "d112", "m1", "m1536", "llava",
+                      "splits",
                       "vs_f64_f32", "vs_f64_bf16", "vs_plain_f32",
                       "vs_plain_bf16",
                       "launch_ms_f32", "launch_ms_bf16", "library_graph_ms",
@@ -2633,7 +3099,7 @@ def main() -> int:
                        v: rows["ssd_scan"].get(v, rows["ssd_scan"])[
                            "data_flops"] for v in ("mamba2", "hymba")},
                    serve=serve, migration=migration, families=families,
-                   check=check)
+                   check=check, vlm_audio=vlm_audio, train=trained)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

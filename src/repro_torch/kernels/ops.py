@@ -10,7 +10,8 @@ float32 scales; float32 SSD scan parameters), shape and contiguity,
 allocates any output and scratch with ``torch.empty``, launches its
 hand-written kernel from ``csrc/`` on the current stream, and raises if
 the launch is refused. It never falls back to the plain version on the
-card.
+card. No kernel has a backward: with grad mode on, a CUDA input that
+requires grad raises (the outputs would carry no autograd history).
 
 The write wrappers (``kv_token_write``, ``kv_chunk_write``,
 ``block_scatter``, ``block_scatter_layers``,
@@ -202,7 +203,9 @@ def _launch(name: str, device: torch.device, *args, entry: str = None,
 
 def _on_cpu(name: str, *tensors) -> bool:
     """True when every tensor is on the CPU; raises unless they all share
-    one CUDA device otherwise."""
+    one CUDA device otherwise. The kernels fill their outputs through raw
+    pointers, so those carry no autograd history: a CUDA input that needs
+    a gradient raises rather than lose it silently."""
     devs = {t.device for t in tensors}
     if devs == {torch.device("cpu")}:
         return True
@@ -210,6 +213,11 @@ def _on_cpu(name: str, *tensors) -> bool:
     if dev.type != "cuda" or len(devs) != 1:
         raise ValueError(f"{name}: tensors must all be on the CPU or all on "
                          f"one CUDA device, got {sorted(map(str, devs))}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward, and an "
+                           "input requires grad; differentiate through the "
+                           "plain version (the training forward does) or "
+                           "call it under torch.no_grad()")
     return False
 
 

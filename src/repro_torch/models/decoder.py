@@ -1,7 +1,8 @@
 """Decoder stacks: the dense and MoE stacks on the paged KV pool (batched
-decode and chunked suffix prefill, the serving path), and the
-dense-cache ``prefill`` / ``decode_step`` of the dense, MoE, SSM (Mamba2)
-and hybrid (Hymba: attention and SSM heads in parallel) stacks.
+decode and chunked suffix prefill, the serving path), the dense-cache
+``prefill`` / ``decode_step`` of the dense, VLM, MoE, SSM (Mamba2) and
+hybrid (Hymba: attention and SSM heads in parallel) stacks, and the
+training ``forward`` of all of them.
 
 The counterparts of ``repro.models.decoder``. JAX scans the stacked layer
 params; here a Python loop walks the layers. On the paged path each
@@ -19,14 +20,18 @@ dense cache of ``prefill`` is a dict of stacked (L, ...) tensors that
                                      SSM and hybrid archs
 
 Where the JAX model computes sliding-window prefill attention and the SSD
-chunk scan in plain ``jnp``, this port runs them through the kernels of
-the Pallas versions, ``ops.swa_attention`` (B15) and ``ops.ssd_scan``
-(B14).
+chunk scan in plain ``jnp``, this port's ``prefill`` runs them through the
+kernels of the Pallas versions, ``ops.swa_attention`` (B15) and
+``ops.ssd_scan`` (B14). Neither kernel has a backward, so ``forward``
+computes both in plain PyTorch, as the JAX ``forward`` does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -39,12 +44,9 @@ SWA_BLOCK = 128
 
 
 def init_layer_stack(cfg, generator, dtype, device):
-    """Stacked (L, ...) params of a dense, MoE, SSM or hybrid stack,
-    shaped as the JAX package's ``init_layer_stack``."""
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: this port runs dense, MoE, SSM "
-            "and hybrid stacks; VLM and audio come in a later slice")
+    """Stacked (L, ...) params of a dense, VLM, MoE, SSM or hybrid stack,
+    shaped as the JAX package's ``init_layer_stack`` (the audio model's
+    stacks are ``encdec.init_encdec``'s)."""
     nl, d = cfg.num_layers, cfg.d_model
 
     def const(value):
@@ -197,6 +199,72 @@ def _mix(lp, a_out, s_out):
     """Hymba's fusion of the parallel attention and SSM outputs."""
     return 0.5 * (L.rms_norm(a_out, lp["attn_out_norm"]) * lp["fuse_attn"]
                   + L.rms_norm(s_out, lp["ssm_out_norm"]) * lp["fuse_ssm"])
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+# Activation rematerialisation of the training forward: when on, each
+# layer keeps only its input and recomputes the rest in the backward pass
+# (``cfg.remat_policy`` "full"), or also keeps its matmul outputs ("dots").
+# The launcher turns it on for full-size training.
+REMAT = False
+# the products whose outputs the "dots" policy keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def set_remat(value: bool) -> None:
+    global REMAT
+    REMAT = bool(value)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _forward_layer(cfg, lp, h, positions):
+    """One training layer: h -> (h', its MoE router's aux loss or 0).
+    Attention is ``L.chunked_attention`` with the config's window and the
+    SSM scan the plain one: both differentiable."""
+    zero = h.new_zeros((), dtype=torch.float32)
+    if cfg.arch_type == "ssm":
+        out, _ = S.ssm_mixer(cfg, lp, L.rms_norm(h, lp["norm"]), plain=True)
+        return h + out, zero
+    xn = L.rms_norm(h, lp["attn_norm"])
+    q, k, v = L.qkv_project(cfg, lp, xn)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    a_out = L.attn_out(lp, L.chunked_attention(
+        q, k, v, positions, positions, window=cfg.sliding_window))
+    if cfg.arch_type == "hybrid":
+        s_out, _ = S.ssm_mixer(cfg, lp, xn, plain=True)
+        h = h + _mix(lp, a_out, s_out)
+    else:
+        h = h + a_out
+    if "we1" in lp:
+        hn = L.rms_norm(h, lp["mlp_norm"])
+        return h + MOE.moe_ffn(cfg, lp, hn), MOE.aux_loss(cfg, lp, hn)
+    return _ffn(cfg, lp, h), zero
+
+
+def forward(cfg, stacked, x, positions):
+    """Training forward of x (B, S, d) embedded at positions (1, S).
+    Returns (hidden (B, S, d), the MoE layers' summed aux loss, float32)."""
+    body = functools.partial(_forward_layer, cfg)
+    if REMAT:
+        kw = dict(use_reentrant=False)
+        if cfg.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)
+        body = functools.partial(ckpt.checkpoint, body, **kw)
+    h, aux = x, x.new_zeros((), dtype=torch.float32)
+    for lp in L.unstack(stacked):
+        h, aux_i = body(lp, h, positions)
+        aux = aux + aux_i
+    return h, aux
 
 
 def prefill(cfg, stacked, x, positions, cache_size=None):

@@ -11,6 +11,7 @@ import itertools
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 # ---------------------------------------------------------------------------
@@ -39,9 +40,23 @@ def stacked_init(layers, shape, dtype, generator, device,
     Kimi-K2 layer's experts are 22.5 GB in float32, one expert 59 MB."""
     lead = (layers,) if isinstance(layers, int) else tuple(layers)
     out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+    if out.is_meta:            # shapes only (``model.param_specs``)
+        return out
     for i in itertools.product(*map(range, lead)):
         out[i] = dense_init(shape, dtype, generator, device, scale)
     return out
+
+
+def unstack(tree):
+    """Per-layer dicts of views of a nested dict of stacked (L, ...)
+    tensors, by ``unbind``. Autograd's backward of the L views is one
+    stack; indexing each layer (``t[i]``) instead adds L gradients of the
+    whole stack's size, zeros but one slice, which at 40 layers moves
+    about 160 times the stacked weights' bytes per backward."""
+    keys = list(tree)
+    cols = [unstack(v) if isinstance(v, dict) else v.unbind(0)
+            for v in tree.values()]
+    return [dict(zip(keys, vals)) for vals in zip(*cols)]
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +69,16 @@ def rms_norm(x, weight, eps: float = 1e-6):
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + weight.float())).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm with bias, statistics in float32 (population variance,
+    as ``jnp.var``)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device):
@@ -200,19 +225,46 @@ def attn_out(lp, o):
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU; Whisper uses the GELU variant)
 # ---------------------------------------------------------------------------
 
-def init_mlp(cfg, generator, layers: int, dtype, device):
+def init_mlp(cfg, generator, layers: int, dtype, device, gelu: bool = False):
+    """SwiGLU weights ``w1``, ``w3`` (L, d, f) and ``w2`` (L, f, d); with
+    ``gelu``, ``w1``, ``w2`` and the biases ``b1`` (L, f), ``b2`` (L, d)."""
     d, f = cfg.d_model, cfg.d_ff
-    return {
-        "w1": stacked_init(layers, (d, f), dtype, generator, device),
-        "w2": stacked_init(layers, (f, d), dtype, generator, device,
-                           scale=1.0 / math.sqrt(f * cfg.num_layers)),
-        "w3": stacked_init(layers, (d, f), dtype, generator, device),
-    }
+    p = {"w1": stacked_init(layers, (d, f), dtype, generator, device),
+         "w2": stacked_init(layers, (f, d), dtype, generator, device,
+                            scale=1.0 / math.sqrt(f * cfg.num_layers))}
+    if gelu:
+        p["b1"] = torch.zeros((layers, f), dtype=dtype, device=device)
+        p["b2"] = torch.zeros((layers, d), dtype=dtype, device=device)
+    else:
+        p["w3"] = stacked_init(layers, (d, f), dtype, generator, device)
+    return p
 
 
-def mlp(lp, x):
-    gate = torch.nn.functional.silu((x @ lp["w1"]).float()).to(x.dtype)
+def mlp(lp, x, gelu: bool = False):
+    """SwiGLU, or with ``gelu`` the biased GELU MLP; the activation in
+    float32 (GELU's tanh form, as ``jax.nn.gelu``), cast back before
+    ``w2``."""
+    if gelu:
+        h = F.gelu((x @ lp["w1"] + lp["b1"]).float(), approximate="tanh")
+        return (h.to(x.dtype) @ lp["w2"]) + lp["b2"]
+    gate = F.silu((x @ lp["w1"]).float()).to(x.dtype)
     return (gate * (x @ lp["w3"])) @ lp["w2"]
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None):
+    """Cross entropy of ``logits`` (..., V) against int ``labels`` (...),
+    in float32; with ``mask`` the masked mean over max(mask.sum(), 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1)
+    return nll.mean()

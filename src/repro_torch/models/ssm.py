@@ -4,9 +4,12 @@ The counterpart of ``repro.models.ssm``. Within a chunk of Q tokens the
 output is a masked quadratic term; across chunks a (H, P, N) state is
 carried with a per-step scalar decay. The JAX model computes the chunked
 scan in plain ``jnp`` with a ``lax.scan`` over chunks that mirrors the
-Pallas kernel's grid; here the scan is the kernel itself, ``ops.ssd_scan``
-(B14), which on the CPU runs its plain version, the token-sequential
-recurrence. Both give the same function: the chunking only reorders sums.
+Pallas kernel's grid. Here serving runs the scan through the kernel,
+``ops.ssd_scan`` (B14), which on the CPU runs its plain version, the
+token-sequential recurrence; training runs :func:`ssd_chunk_scan_plain`,
+the JAX function step for step, since B14 has no backward (neither has
+the Pallas kernel). All give the same function: the chunking only
+reorders sums.
 
 The SSM cache of a layer is fixed-size: the last ``W - 1`` inputs of the
 causal conv (B, W-1, conv_dim) and the state (B, H, P, N) float32.
@@ -98,6 +101,46 @@ def _ssd_chunk_scan(cfg, x, dt, a, b, c):
     return (y[:, :s] if pad else y), state
 
 
+def ssd_chunk_scan_plain(cfg, x, dt, a, b, c):
+    """The chunked SSD scan from a zero state in plain, differentiable
+    PyTorch: ``repro.models.ssm._ssd_chunk_scan`` with a Python loop over
+    chunks. Each chunk adds its masked quadratic term and the carried
+    state's term, then decays the state and adds its contribution. Same
+    arguments and results as :func:`_ssd_chunk_scan`."""
+    bsz, s, h, p = x.shape
+    q = min(cfg.ssm_chunk, s)
+    pad = (-s) % q
+    if pad:
+        x, dt, a, b, c = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                          for t in (x, dt, a, b, c))
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=x.device))[None, :, :, None]
+    state = torch.zeros((bsz, h, p, b.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for i in range(0, x.shape[1], q):
+        xq, dtq, aq, bq, cq = (t[:, i:i + q] for t in (x, dt, a, b, c))
+        xq = xq.float()
+        a_cum = aq.cumsum(dim=1)                             # (B, Q, H)
+        # L[i, j] = exp(a_cum[i] - a_cum[j]) for i >= j; clamped before
+        # the exp, so the upper triangle's large diffs cannot overflow
+        # into the gradient through the where
+        diff = a_cum[:, :, None, :] - a_cum[:, None, :, :]   # (B, Q, Q, H)
+        diff = torch.where(mask, diff, diff.new_full((), -60.0))
+        decay = torch.where(mask, torch.exp(diff), diff.new_zeros(()))
+        scores = torch.einsum("bin,bjn->bij", cq, bq)
+        w = scores[..., None] * decay * dtq[:, None, :, :]
+        y_intra = torch.einsum("bijh,bjhp->bihp", w, xq)
+        y_inter = torch.einsum("bin,bhpn->bihp", cq, state) \
+            * torch.exp(a_cum)[..., None]
+        rem = torch.exp(a_cum[:, -1:, :] - a_cum)
+        contrib = torch.einsum("bjh,bjn,bjhp->bhpn", dtq * rem, bq, xq)
+        state = state * torch.exp(a_cum[:, -1])[..., None, None] + contrib
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)
+    return (y[:, :s] if pad else y), state
+
+
 def _gated_out(cfg, lp, y, z, xh, x_dtype):
     """Skip term D x, gated RMSNorm (mamba2) and the out-projection."""
     bsz, s = y.shape[:2]
@@ -108,9 +151,13 @@ def _gated_out(cfg, lp, y, z, xh, x_dtype):
     return y @ lp["out_proj"]
 
 
-def ssm_mixer(cfg, lp, x, state=None):
+def ssm_mixer(cfg, lp, x, state=None, plain: bool = False):
     """Mamba2 mixer over a sequence x (B, S, d_model) from a zero state.
-    Returns (out (B, S, d_model), (conv cache, final state))."""
+    The scan runs through B14 (``ops.ssd_scan``, which refuses to be
+    differentiated through on the card) unless ``plain`` is set, as the
+    training ``decoder.forward`` sets it: that takes the differentiable
+    :func:`ssd_chunk_scan_plain`. Returns (out (B, S, d_model), (conv
+    cache, final state))."""
     if state is not None:
         raise NotImplementedError(
             "ssm_mixer: prefill starts from a zero state; a carried "
@@ -124,7 +171,9 @@ def ssm_mixer(cfg, lp, x, state=None):
     dt = F.softplus(dt.float() + lp["dt_bias"])                    # (B,S,H)
     a = dt * -torch.exp(lp["A_log"])                               # log decay
     xh = xin.reshape(bsz, s, cfg.ssm_heads, cfg.ssm_head_dim)
-    y, new_state = _ssd_chunk_scan(cfg, xh, dt, a, b.float(), c.float())
+    args = (xh, dt, a, b.float(), c.float())
+    scan = ssd_chunk_scan_plain if plain else _ssd_chunk_scan
+    y, new_state = scan(cfg, *args)
     return _gated_out(cfg, lp, y, z, xh, x.dtype), (conv_cache, new_state)
 
 

@@ -205,8 +205,9 @@ def test_cpu_prefill_launches_no_kernel_and_other_archs_raise():
     with pytest.raises(NotImplementedError, match="zero state"):
         S.ssm_mixer(cfg, {}, torch.zeros((1, 4, cfg.d_model)),
                     state=torch.zeros(1))
-    vlm = get_smoke_config("llava_next_mistral_7b")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        M.init_params(vlm, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        M.prefill(vlm, {}, {"tokens": toks})
+    # the dense-cache path runs VLM and audio; the paged serving backend
+    # still refuses them
+    from repro_torch.core.backend import TorchBackend
+    for arch in ("llava_next_mistral_7b", "whisper_large_v3"):
+        with pytest.raises(NotImplementedError, match="VLM and audio"):
+            TorchBackend(get_smoke_config(arch), None, None, device="cpu")

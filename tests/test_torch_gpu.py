@@ -1110,3 +1110,35 @@ def test_hymba_smoke_prefill_decode_card_equals_cpu(dev):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
     for k in cc:
         torch.testing.assert_close(cg[k], cc[k], atol=1e-4, rtol=1e-4)
+
+
+def test_kernel_entries_refuse_to_be_differentiated(dev):
+    """The kernels fill their outputs through raw pointers, so an output
+    would carry no autograd history: with grad mode on, a CUDA input that
+    requires grad raises before any launch (and the count stays); under
+    ``torch.no_grad()`` the same call launches."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, 128, 2, 64), generator=gen, device=dev)
+               for _ in "qkv")
+    x = torch.randn((1, 64, 2, 64), generator=gen, device=dev)
+    dt = torch.rand((1, 64, 2), generator=gen, device=dev)
+    bc = torch.randn((1, 64, 16), generator=gen, device=dev)
+    pages = torch.randn((5, 16, 2, 64), generator=gen, device=dev)
+    tables = _ints([[0, 1, 2, 3]], dev)
+    lens = _ints([40], dev)
+    calls = {
+        "swa_attention": lambda t: ops.swa_attention(t, k, v, 32),
+        "ssd_scan": lambda t: ops.ssd_scan(t, dt, -dt, bc, bc),
+        "paged_attention": lambda t: ops.paged_attention(
+            t[0, :1, :, :], pages, pages, tables, lens)}
+    inputs = {"swa_attention": q, "ssd_scan": x, "paged_attention": q}
+    for name, call in calls.items():
+        t = inputs[name].clone().requires_grad_(True)
+        ops.reset_launches()
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(t)
+        assert ops.launches[name] == 0, name
+        with torch.no_grad():
+            call(t)
+        torch.cuda.synchronize()
+        assert ops.launches[name] == 1, name

@@ -60,6 +60,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core.backend, repro_torch.launch.serve\n"
             "import repro_torch.launch.http_server, repro_torch.cluster\n"
             "import repro_torch.kernels.ops, repro_torch.configs.base\n"
+            "import repro_torch.models.encdec, repro_torch.models.model\n"
+            "import repro_torch.data.pipeline, repro_torch.launch.train\n"
+            "import repro_torch.train.optimizer, repro_torch.train.train_loop\n"
+            "import repro_torch.train.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

@@ -174,7 +174,20 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    (8 N tokens: forward, backward and the remat forward, N the
    parameters that multiply) over time as a share of the bf16 peak
    printed; then one more step split into the gradients and AdamW (CUDA
-   events) and one under ``torch.profiler``.
+   events) and one under ``torch.profiler``;
+12. cache methods, examples and dry-run: on a Qwen2.5-14B pool of the
+   serve phase's shape, ``PagedKVCache.write_token`` (B1), ``gather_seq``
+   (B5) and ``decode_attention`` (B2 on one layer), launch counts zeroed
+   just before and read just after, each against the same method on a CPU
+   copy of the pools (the plain versions): the pools bit for bit, the
+   gathered sequence exact, the attention within the 2e-3 bf16 tolerance
+   and its empty row zero; then ``examples/torch_quickstart.py``,
+   ``torch_serve_multiagent.py``, ``torch_arch_zoo.py`` and
+   ``torch_train_small.py`` at their defaults in subprocesses on the card
+   (any non-zero exit fails the run); then ``python -m
+   repro_torch.launch.dryrun --perf-variant`` at 16 x 16 (meta tensors on
+   a fake 256-rank mesh, no device): each pair's per-device argument GiB,
+   FLOPs and collective GiB, and the phase's seconds.
 
 B9-B13b (``paged_attention_quant``, ``paged_prefill_attention_quant``,
 ``kv_block_quant``, ``kv_block_dequant``, ``block_gather``,
@@ -188,11 +201,12 @@ B15 also at LLaVA's (variant ``llava``: phase 10's two requests of
 4928 positions padded to 4992, H 32, D 128, window 4096); their launches are those of
 phases 8 and 10, the ``llava`` variant's phase 10's. The launches of
 the serving path's kernels are the sum of the serve phases' (5, 6, 6b
-and 7); a ``d112`` variant carries the Kimi-K2 serve's own.
+and 7); a ``d112`` variant carries the Kimi-K2 serve's own. Phase 12's
+launches of B1, B2 and B5 are added to their rows.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``. With ``--only
-kernels`` phases 4-11 are skipped and every launch count in that line is
+kernels`` phases 4-12 are skipped and every launch count in that line is
 the kernel phase's. ``--out PATH`` also writes the full results as JSON.
 Engine latencies in the serve report are virtual time from the A100 cost
 model, not card time.
@@ -203,6 +217,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2985,6 +3000,168 @@ def train_step_split(card: str, params, opt_state) -> dict:
     return dict(fwd_bwd_ms=fwd_bwd, adamw_ms=adamw, profile=prof)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the cache's last three methods, the examples and the dry-run
+# ---------------------------------------------------------------------------
+
+# the kernels under PagedKVCache.write_token, gather_seq, decode_attention
+CACHE_KERNELS = ("kv_token_write", "block_gather_layers", "paged_attention")
+# the port's examples, run on the card at their defaults
+EXAMPLES = ("torch_quickstart.py", "torch_serve_multiagent.py",
+            "torch_arch_zoo.py", "torch_train_small.py")
+# the request that phase 12's cache methods read and write: blocks of the
+# pool, tokens it holds, the layer of decode_attention
+CACHE_BLOCKS, CACHE_LEN, CACHE_LAYER = 20, 300, 24
+
+
+def cache_methods(card: str) -> tuple:
+    """``PagedKVCache.write_token`` (B1), ``gather_seq`` (B5) and
+    ``decode_attention`` (B2 on one layer) on a Qwen2.5-14B pool of the
+    serve phase's shape (48 layers, 2048 blocks of 16 tokens plus the
+    scratch block, 8 KV heads of 128, bf16, drawn from seed 0), each held
+    against the same method on a CPU copy of the pools, where the kernels'
+    plain versions run: the pools after two ``write_token`` calls (the
+    request's last position and one past its blocks, the scratch slot) bit
+    for bit, ``gather_seq`` exact, ``decode_attention`` (B 8, H 40, 64-page
+    tables, one row of length 0) within ``TOL["bf16"]`` with the empty row
+    exactly zero. Launch counts are zeroed before the card's calls and read
+    after them. Returns (results, counts)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kvcache.paged import PagedKVCache
+
+    cfg = get_config("qwen2_5_14b_serving")
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    card_c = PagedKVCache(cfg, GPU_BLOCKS, BS, dtype=torch.bfloat16,
+                          device="cuda")
+    cpu_c = PagedKVCache(cfg, GPU_BLOCKS, BS, dtype=torch.bfloat16,
+                         device="cpu")
+    for pool, twin in ((card_c.k, cpu_c.k), (card_c.v, cpu_c.v)):
+        pool.normal_(generator=gen)
+        twin.copy_(pool.cpu())
+    blocks = rng.choice(GPU_BLOCKS, CACHE_BLOCKS, replace=False).tolist()
+    kv_tok = [torch.from_numpy(rng.standard_normal(
+        (cfg.num_layers, HKV, D), dtype=np.float32)).to(torch.bfloat16)
+        for _ in range(4)]
+    q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32)
+                         ).to(torch.bfloat16)
+    tables = torch.from_numpy(rng.integers(0, GPU_BLOCKS, (B, P),
+                                           dtype=np.int32))
+    lens = torch.from_numpy(rng.integers(1, P * BS + 1, B, dtype=np.int32))
+    lens[-1] = 0
+    writes = ((CACHE_LEN - 1, kv_tok[0], kv_tok[1]),
+              (CACHE_BLOCKS * BS, kv_tok[2], kv_tok[3]))
+
+    def run(c, dev):
+        for pos, k, v in writes:
+            c.write_token(blocks, pos, k.to(dev), v.to(dev))
+        seq = c.gather_seq(blocks, CACHE_LEN)
+        out = c.decode_attention(CACHE_LAYER, q.to(dev), tables.to(dev),
+                                 lens.to(dev))
+        return seq, out
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got_seq, got_out = run(card_c, "cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = {k: ops.launches[k] for k in CACHE_KERNELS}
+    want_seq, want_out = run(cpu_c, "cpu")
+    pools_equal = all(torch.equal(pool.cpu(), twin) for pool, twin in
+                      ((card_c.k, cpu_c.k), (card_c.v, cpu_c.v)))
+    seq_equal = all(torch.equal(g.cpu(), w)
+                    for g, w in zip(got_seq, want_seq))
+    got_out = got_out.float().cpu()
+    attn_err = float((got_out - want_out.float()).abs().max())
+    attn_ok = torch.allclose(got_out, want_out.float(), **TOL["bf16"])
+    empty_zero = not got_out[-1].any()
+    res = dict(write_token_pools_equal=pools_equal, gather_seq_equal=seq_equal,
+               decode_attention_max_abs_err=attn_err,
+               decode_attention_tol=TOL["bf16"], empty_row_zero=empty_zero,
+               launches=counts, card_s=card_s,
+               shape=dict(layers=cfg.num_layers, blocks=GPU_BLOCKS + 1, bs=BS,
+                          hkv=HKV, d=D, request_blocks=CACHE_BLOCKS,
+                          length=CACHE_LEN, b=B, h=H, pages=P))
+    print(f"  [{card}] write_token x2 (B1): pools equal the plain "
+          f"version's: {pools_equal}; gather_seq of {CACHE_LEN} tokens "
+          f"(B5): exact: {seq_equal}; decode_attention layer {CACHE_LAYER} "
+          f"(B2): max abs err {attn_err:.3e} (tol {TOL['bf16']}), empty "
+          f"row zero: {empty_zero}; launches {counts}; the card's calls "
+          f"{card_s * 1e3:.1f} ms wall", flush=True)
+    if not (pools_equal and seq_equal and attn_ok and empty_zero):
+        raise RuntimeError(f"phase 12: a cache method disagrees with its "
+                           f"plain version: {res}")
+    if not all(counts.values()):
+        raise RuntimeError(f"phase 12: a cache method launched no kernel: "
+                           f"{counts}")
+    del card_c, cpu_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def run_examples(card: str) -> dict:
+    """Each ``examples/torch_*.py`` at its defaults, in a subprocess on the
+    card; a non-zero exit fails the run. Returns each one's wall s."""
+    out = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / name)],
+                              capture_output=True, text=True, timeout=300,
+                              cwd=ROOT)
+        out[name] = time.perf_counter() - t0
+        tail = proc.stdout.strip().splitlines()[-3:]
+        print(f"  [{card}] {name}: exit {proc.returncode}, "
+              f"{out[name]:.1f} s; " + " | ".join(tail), flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"phase 12: {name} exited "
+                               f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    return out
+
+
+def dryrun_phase() -> dict:
+    """``python -m repro_torch.launch.dryrun --perf-variant --force`` at
+    16 x 16: the four ``PERF_VARIANTS`` pairs on meta tensors over the fake
+    256-rank mesh (no device). Every pair must be ok; prints each one's
+    per-device argument GiB, FLOPs and collective GiB. Returns the
+    records."""
+    from repro_torch.launch.dryrun import PERF_VARIANTS
+
+    out = ROOT / "results" / "dryrun_torch"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--perf-variant", "--force", "--out", str(out)],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 12: the dry-run exited {proc.returncode}"
+                           f":\n{proc.stderr[-3000:]}")
+    recs = {}
+    for arch, shape in PERF_VARIANTS:
+        path = out.parent / "dryrun_torch_perf" / f"{arch}.{shape}.16x16.json"
+        rec = json.loads(path.read_text())
+        recs[f"{arch}.{shape}"] = rec
+        if rec["status"] != "ok":
+            raise RuntimeError(f"phase 12: dry-run {arch} {shape} failed: "
+                               f"{rec['error']}\n{rec['traceback']}")
+        print(f"  [dry-run 16x16] {arch} {shape}: args/device "
+              f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB, flops "
+              f"{rec['cost']['flops']:.4e}, collectives "
+              f"{rec['collectives']['total'] / 2**30:.3f} GiB "
+              f"({rec['total_s']} s)", flush=True)
+    print(f"  [dry-run 16x16] {len(recs)} pairs in {wall:.1f} s (counts for "
+          f"the reference's 256-chip layout, not device measurements)",
+          flush=True)
+    return dict(records=recs, wall_s=wall)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3035,7 +3212,7 @@ def main() -> int:
     if args.only == "kernels":
         launches = dict(ops.launches)
         checked = serve = migration = families = check = None
-        vlm_audio = trained = None
+        vlm_audio = trained = phase12 = None
     else:
         launches = {k: ops.launches[k] for k in KERNEL_PHASE_ONLY}
         checked, serve, migration, families, check = serving_phases(
@@ -3056,6 +3233,19 @@ def main() -> int:
               f"process", flush=True)
         trained = train_phase(card)
         phase_s["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        print("[cache methods, examples and dry-run] PagedKVCache."
+              "write_token / gather_seq / decode_attention on a Qwen2.5-14B "
+              "pool; examples/torch_*.py at their defaults; python -m "
+              "repro_torch.launch.dryrun --perf-variant", flush=True)
+        cache, counts = cache_methods(card)
+        for k, n in counts.items():
+            launches[k] += n
+        phase12 = dict(cache=cache, examples_s=run_examples(card),
+                       dryrun=dryrun_phase())
+        phase_s["cache_examples_dryrun"] = time.perf_counter() - t0
+        print(f"  phase 12 took {phase_s['cache_examples_dryrun']:.1f} s",
+              flush=True)
 
     if serve is not None:            # the D 112 rows ran in the Kimi serve
         for name, n in serve["kimi"]["launches_of_path"].items():
@@ -3099,7 +3289,8 @@ def main() -> int:
                        v: rows["ssd_scan"].get(v, rows["ssd_scan"])[
                            "data_flops"] for v in ("mamba2", "hymba")},
                    serve=serve, migration=migration, families=families,
-                   check=check, vlm_audio=vlm_audio, train=trained)
+                   check=check, vlm_audio=vlm_audio, train=trained,
+                   phase12=phase12)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -202,17 +202,21 @@ def _launch(name: str, device: torch.device, *args, entry: str = None,
 
 
 def _on_cpu(name: str, *tensors) -> bool:
-    """True when every tensor is on the CPU; raises unless they all share
-    one CUDA device otherwise. The kernels fill their outputs through raw
-    pointers, so those carry no autograd history: a CUDA input that needs
-    a gradient raises rather than lose it silently."""
+    """True when every tensor is on the CPU, or every tensor is on the meta
+    device (shapes only, as in the dry-run: nothing is computed there and
+    nothing can be launched), so the caller takes the plain version;
+    raises unless they all share one CUDA device otherwise. The kernels
+    fill their outputs through raw pointers, so those carry no autograd
+    history: a CUDA input that needs a gradient raises rather than lose it
+    silently."""
     devs = {t.device for t in tensors}
-    if devs == {torch.device("cpu")}:
+    if devs == {torch.device("cpu")} or devs == {torch.device("meta")}:
         return True
     dev = tensors[0].device
     if dev.type != "cuda" or len(devs) != 1:
-        raise ValueError(f"{name}: tensors must all be on the CPU or all on "
-                         f"one CUDA device, got {sorted(map(str, devs))}")
+        raise ValueError(f"{name}: tensors must all be on the CPU, all on "
+                         f"the meta device or all on one CUDA device, got "
+                         f"{sorted(map(str, devs))}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the CUDA kernel has no backward, and an "
                            "input requires grad; differentiate through the "

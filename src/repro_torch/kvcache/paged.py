@@ -136,6 +136,31 @@ class PagedKVCache:
         vn = v_toks.reshape(-1, *v_toks.shape[2:]).to(self.v.dtype)
         ops.kv_token_write(kf, vf, kn.contiguous(), vn.contiguous(), folded)
 
+    def write_token(self, blocks: List[int], pos: int, k_tok, v_tok):
+        """k_tok/v_tok: (L, Hkv, D); write at absolute position ``pos`` of
+        the request holding ``blocks`` (the scratch slot past them)."""
+        self.write_tokens([self.slot_of(blocks, pos)], k_tok[:, None],
+                          v_tok[:, None])
+
+    # ---- read path ----------------------------------------------------------
+    def gather_seq(self, blocks: List[int], length: int):
+        """One request's K and V, each (L, length, Hkv, D): its blocks of
+        every layer in one gather launch per pool (the offload's
+        ``block_gather_layers``), then the first ``length`` positions."""
+        nl = self.k.shape[0]
+        idx = self._ids(blocks)
+        return tuple(
+            ops.block_gather_layers(pool, idx)
+            .reshape(nl, -1, *pool.shape[3:])[:, :length]
+            for pool in (self.k, self.v))
+
+    def decode_attention(self, layer: int, q, block_tables, context_lens):
+        """Batched paged decode attention over layer ``layer``'s pools:
+        q (B, H, D), block_tables (B, P) int32, context_lens (B,) int32;
+        rows with ``context_lens`` 0 come out as zeros."""
+        return ops.paged_attention(q, self.k[layer], self.v[layer],
+                                   block_tables, context_lens)
+
     # ---- copy-on-write ------------------------------------------------------
     def copy_blocks(self, src: List[int], dst: List[int]):
         """Device-local block clone, all layers: the COW data plane (a

@@ -37,6 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
+from repro_torch.models.sharding import logical
 
 # sequence block of ops.swa_attention (its default q_block and kv_block):
 # windowed prefill pads S to a multiple of it
@@ -171,11 +172,20 @@ def _swa(q, k, v, window: int):
     return ops.swa_attention(q, k, v, window)[:, :s]
 
 
-def _attn_seq(cfg, lp, xn, positions):
-    """Sequence attention of prefill. Returns (out, k, v)."""
+def _rope_qkv(cfg, lp, xn, positions):
+    """q, k, v of a sequence, q and k roped, each constrained to its
+    logical axes."""
     q, k, v = L.qkv_project(cfg, lp, xn)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+    return (logical(q, "batch", "seq", "heads", None),
+            logical(k, "batch", "seq", "kv_heads", None),
+            logical(v, "batch", "seq", "kv_heads", None))
+
+
+def _attn_seq(cfg, lp, xn, positions):
+    """Sequence attention of prefill. Returns (out, k, v)."""
+    q, k, v = _rope_qkv(cfg, lp, xn, positions)
     if cfg.sliding_window is not None:
         out = _swa(q, k, v, cfg.sliding_window)
     else:
@@ -234,9 +244,7 @@ def _forward_layer(cfg, lp, h, positions):
         out, _ = S.ssm_mixer(cfg, lp, L.rms_norm(h, lp["norm"]), plain=True)
         return h + out, zero
     xn = L.rms_norm(h, lp["attn_norm"])
-    q, k, v = L.qkv_project(cfg, lp, xn)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _rope_qkv(cfg, lp, xn, positions)
     a_out = L.attn_out(lp, L.chunked_attention(
         q, k, v, positions, positions, window=cfg.sliding_window))
     if cfg.arch_type == "hybrid":
@@ -246,8 +254,10 @@ def _forward_layer(cfg, lp, h, positions):
         h = h + a_out
     if "we1" in lp:
         hn = L.rms_norm(h, lp["mlp_norm"])
-        return h + MOE.moe_ffn(cfg, lp, hn), MOE.aux_loss(cfg, lp, hn)
-    return _ffn(cfg, lp, h), zero
+        h, aux = h + MOE.moe_ffn(cfg, lp, hn), MOE.aux_loss(cfg, lp, hn)
+    else:
+        h, aux = _ffn(cfg, lp, h), zero
+    return logical(h, "batch", "seq", "embed"), aux
 
 
 def forward(cfg, stacked, x, positions):

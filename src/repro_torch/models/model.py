@@ -34,6 +34,7 @@ from repro_torch.models import decoder as D
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models.sharding import logical
 
 
 def torch_dtype(cfg):
@@ -97,14 +98,14 @@ def load_jax_params(np_tree, device):
 
 
 def _embed_tokens(params, tokens):
-    return params["embed"][tokens.long()]
+    return logical(params["embed"][tokens.long()], "batch", "seq", "embed")
 
 
 def _lm_head(cfg, params, h):
     """Final RMSNorm (none in the audio model) and the unembedding."""
     if cfg.arch_type != "audio":
         h = L.rms_norm(h, params["final_norm"])
-    return h @ params["unembed"]
+    return logical(h @ params["unembed"], "batch", "seq", "vocab")
 
 
 def paged_decode_step(cfg, params, k_pool, v_pool, tokens, tables,

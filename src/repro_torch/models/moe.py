@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import logical
 
 
 def init_moe(cfg, generator, n_layers: int, dtype, device):
@@ -116,13 +117,15 @@ def moe_ffn(cfg, lp, x, pad_mask=None):
     sort_idx, slot = dispatch(cfg, flat_e, cap)
     buf = x.new_zeros((e * cap + 1, d)).index_copy_(0, slot,
                                                     xt[sort_idx // k])
-    xb = buf[:e * cap].view(e, cap, d)
+    xb = logical(buf[:e * cap].view(e, cap, d), "experts", "expert_cap",
+                 None)
 
     # the experts, batched
     h = torch.bmm(xb, lp["we1"])
     g = torch.bmm(xb, lp["we3"])
-    h = F.silu(h.float()).to(x.dtype) * g
-    out = torch.bmm(h, lp["we2"])
+    h = logical(F.silu(h.float()).to(x.dtype) * g, "experts", "expert_cap",
+                "ffn")
+    out = logical(torch.bmm(h, lp["we2"]), "experts", "expert_cap", None)
 
     # combine: dropped entries read the appended zero row; unsort to the
     # (token, slot) order and sum the k slots weighted by their gates

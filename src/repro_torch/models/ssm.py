@@ -156,8 +156,11 @@ def ssm_mixer(cfg, lp, x, state=None, plain: bool = False):
     The scan runs through B14 (``ops.ssd_scan``, which refuses to be
     differentiated through on the card) unless ``plain`` is set, as the
     training ``decoder.forward`` sets it: that takes the differentiable
-    :func:`ssd_chunk_scan_plain`. Returns (out (B, S, d_model), (conv
-    cache, final state))."""
+    :func:`ssd_chunk_scan_plain`, as do meta inputs (the dry-run's shapes,
+    where the chunked scan is the reference's prefill computation and B14's
+    plain version, the token-sequential recurrence, would be one Python
+    step per token). Returns (out (B, S, d_model), (conv cache, final
+    state))."""
     if state is not None:
         raise NotImplementedError(
             "ssm_mixer: prefill starts from a zero state; a carried "
@@ -172,7 +175,7 @@ def ssm_mixer(cfg, lp, x, state=None, plain: bool = False):
     a = dt * -torch.exp(lp["A_log"])                               # log decay
     xh = xin.reshape(bsz, s, cfg.ssm_heads, cfg.ssm_head_dim)
     args = (xh, dt, a, b.float(), c.float())
-    scan = ssd_chunk_scan_plain if plain else _ssd_chunk_scan
+    scan = ssd_chunk_scan_plain if plain or x.is_meta else _ssd_chunk_scan
     y, new_state = scan(cfg, *args)
     return _gated_out(cfg, lp, y, z, xh, x.dtype), (conv_cache, new_state)
 

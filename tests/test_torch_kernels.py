@@ -563,6 +563,25 @@ def _ssd_inputs(rng, b, s, h, p, n, dt, a_scale=None):
     return (pair(x, dt), *(pair(t, "f32") for t in rest))
 
 
+def test_meta_inputs_take_the_plain_route():
+    """Meta tensors (the dry-run's) take the plain versions, launch
+    nothing and give meta outputs of the kernels' shapes; meta beside the
+    CPU still raises (``test_mixed_devices_raise``)."""
+    ops.reset_launches()
+    pools = torch.empty((2, 5, 4, 2, 8), device="meta")
+    idx = torch.empty((3,), dtype=torch.int32, device="meta")
+    out = ops.block_gather_layers(pools, idx)
+    assert out.is_meta and out.shape == (2, 3, 4, 2, 8)
+    qkv = torch.empty((1, 128, 2, 16), device="meta")
+    assert ops.swa_attention(qkv, qkv, qkv, 32).shape == qkv.shape
+    x = torch.empty((1, 128, 2, 8), device="meta")
+    dt = torch.empty((1, 128, 2), device="meta")
+    bc = torch.empty((1, 128, 4), device="meta")
+    y, st = ops.ssd_scan(x, dt, dt, bc, bc, chunk=64)
+    assert y.is_meta and y.shape == x.shape and st.shape == (1, 2, 8, 4)
+    assert not any(ops.launches.values())
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("s,q", [(64, 16), (128, 64), (96, 32)])
 @pytest.mark.parametrize("h,p,n", [(2, 8, 4), (3, 16, 8)])

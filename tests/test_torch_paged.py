@@ -1,6 +1,9 @@
 """The port's PagedKVCache against the JAX one, bit for bit, on the CPU:
 offload -> upload round trips into new blocks, COW ``copy_blocks``, the
-layer-folded ``write_tokens``, ``write_prefill`` and ``write_window``.
+layer-folded ``write_tokens``, ``write_prefill`` and ``write_window``, and
+the one-request ``write_token`` and ``gather_seq``; ``decode_attention``
+against the JAX cache's Pallas kernel at ``test_kernels.py``'s float32
+tolerance (3e-5), a row of length 0 giving zeros in both.
 
 With the int8 host tier the port's host payload and scales equal the JAX
 oracle ``quantize_block_ref`` bit for bit; against the JAX cache, whose
@@ -121,6 +124,47 @@ def test_write_window_matches_jax(start, count):
     tp, ts = t.write_window(blocks, start, count, 4)
     np.testing.assert_array_equal(jp, tp)
     assert js == ts
+
+
+@pytest.mark.parametrize("pos", [0, 5, 2 * BS + 3, 3 * BS])
+def test_write_token_matches_jax_bit_for_bit(pos):
+    """One token's K/V of every layer at position ``pos`` of a request;
+    3 * BS lies past its three blocks, so both write the scratch slot."""
+    j, t, rng = _pair()
+    blocks = [7, 2, 5]
+    kt = rng.standard_normal((3, 2, 16)).astype(np.float32)
+    vt = rng.standard_normal((3, 2, 16)).astype(np.float32)
+    j.write_token(blocks, pos, jnp.asarray(kt), jnp.asarray(vt))
+    t.write_token(blocks, pos, torch.from_numpy(kt), torch.from_numpy(vt))
+    _same(j, t)
+
+
+@pytest.mark.parametrize("length", [1, 7, 12])
+def test_gather_seq_matches_jax(length):
+    j, t, _ = _pair()
+    blocks = [6, 0, 9]
+    for want, got in zip(j.gather_seq(blocks, length),
+                         t.gather_seq(blocks, length)):
+        assert got.shape == (3, length, 2, 16)
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def test_decode_attention_matches_jax_with_a_zero_length_row():
+    """Every layer against the JAX cache's Pallas kernel (interpret mode)
+    at ``test_kernels.py``'s float32 tolerance; a row with
+    ``context_lens`` 0 comes out as zeros in both."""
+    j, t, rng = _pair()
+    q = rng.standard_normal((3, 4, 16)).astype(np.float32)
+    tables = np.array([[3, 7, 1], [0, 9, 2], [5, 5, 5]], np.int32)
+    lens = np.array([9, 12, 0], np.int32)
+    for layer in range(3):
+        want = np.asarray(j.decode_attention(
+            layer, jnp.asarray(q), jnp.asarray(tables), jnp.asarray(lens)))
+        got = t.decode_attention(layer, torch.from_numpy(q),
+                                 torch.from_numpy(tables),
+                                 torch.from_numpy(lens)).numpy()
+        np.testing.assert_allclose(got, want, atol=3e-5, rtol=3e-5)
+        assert not got[2].any() and not want[2].any()
 
 
 def test_disabled_host_tier_and_int8_host_fail_loudly():

@@ -48,6 +48,9 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_no_repro():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 4
+    files += examples
     assert len(files) > 30
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -64,6 +67,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.data.pipeline, repro_torch.launch.train\n"
             "import repro_torch.train.optimizer, repro_torch.train.train_loop\n"
             "import repro_torch.train.checkpoint\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+            "import repro_torch.models.sharding\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

@@ -57,8 +57,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    0; B 8 rows of 256-token contexts through 16-page tables, a 32-token
    chunk), run eagerly through the kernels and through their plain
    versions, before any step is captured: the logits must agree within
-   four bf16 steps of the largest one, and the argmax on every row whose
-   top two logits are clearly apart (``STEP_REL``);
+   four bf16 steps of the largest one, the argmax on every row whose top
+   two logits are clearly apart, and the pools each step wrote within
+   four bf16 steps of their largest value (``STEP_REL``);
 5. serve fp16: four deep_research apps through the tokencake engine with
    ``TorchBackend`` at Qwen2.5-14B's full width and depth (48 layers,
    random bf16 weights from seed 0), a 2048-block device pool and a
@@ -67,9 +68,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    runs the step eagerly once and captures it, every call replays it);
    launch counts are zeroed just before and read just after, and every
    kernel of the path (B2, B4, B5, B6 and the RoPE + B1 / RoPE + B3
-   writes) must have run, the fused writes once per layer of every
-   replayed and every warm-up decode step and prefill chunk and B1 / B3
-   alone never, with at least one offload and no truncated prompt; the
+   writes) must have run exactly as often as the path calls them: the
+   fused writes and B2 / B4 once per layer of every replayed and every
+   warm-up decode step and prefill chunk, B5 and B6 twice (K and V) per
+   offload and per upload, and B1 / B3 alone never, with at least one
+   offload and upload and no truncated prompt; the
    graphs captured per kind, the capture seconds and the peak memory are
    printed; then the graph phase at the serve's shape on its weights and
    pools: the replayed decode step and prefill chunk equal the eager ones
@@ -77,13 +80,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    synchronised calls each), the device's idle share over 10 decode steps
    each way under ``torch.profiler``, and one step each way under the
    profiler (device kernels, copies, memsets, host launch calls); and the
-   cache's offload and upload of 32 blocks are timed;
+   cache's offload and upload of 32 random blocks are held bit for bit
+   against the plain B5 / B6, then timed;
 6. serve int8_host: the same apps on the same weights with
    ``TemporalConfig(kv_precision="int8_host")``: offloads quantize on the
    card into an int8 pinned host pool, uploads dequantize on the card;
    the fused writes, B2, B4, B7 and B8 must have run (the same launch
-   checks), with at least one offload and one upload and wire bytes in
-   whole int8 blocks; then the same timing;
+   checks), with wire bytes in whole int8 blocks; then the same check
+   (against the plain B7 / B8) and timing;
 6b. front door: phase 5's weights behind ``launch.http_server.HttpServer``
    (its pump on a background thread, 127.0.0.1, an ephemeral port) over
    an engine with continuous batching, sessions and the prefix cache, the
@@ -187,7 +191,40 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    (any non-zero exit fails the run); then ``python -m
    repro_torch.launch.dryrun --perf-variant`` at 16 x 16 (meta tensors on
    a fake 256-rank mesh, no device): each pair's per-device argument GiB,
-   FLOPs and collective GiB, and the phase's seconds.
+   FLOPs and collective GiB, and the phase's seconds;
+13. engine families: the archs the engine serves with the JAX package's
+   per-request path, each through ``Engine`` + ``TorchBackend`` at full
+   width with phase 5's serve (random bf16 weights from seed 0, two
+   deep_research apps, decode segments cut to 16, one model after
+   another, each freed before the next): Mixtral-8x22B (MoE, window
+   4096) at 2 of its 56 layers (``reduced``), Hymba-1.5B (hybrid; prompts
+   cut to 1536 tokens, so its 1024-token window bites in B15's prefill;
+   fp16 and ``int8_host`` tiers), LLaVA-NeXT-Mistral-7B (VLM: 2880 zero
+   patches ahead of the text; its prefill K/V spans more blocks than a
+   request holds, and the leading ones are written), Mamba2-130M (SSM)
+   and Whisper-large-v3 (audio: the encoder over 1500 zero frames in
+   every prefill), prompts cut to 256 tokens. The scheduler's own gate
+   finds no waiting request to admit at these stalls, so the harness
+   offloads every agent at its tool-call stall (the offload counts are
+   its own). Every request prefills alone through the dense-cache
+   ``prefill`` (B15 once per layer for the windowed archs, B14 for the
+   SSM and hybrid ones), its K/V written into the pool by B6; the
+   attention archs decode through the paged step's CUDA graphs (the fused
+   RoPE + B1 write and B2 once per layer of every step) and Mamba2 and
+   Whisper decode no token, as in the JAX backend (their count, 0, is
+   printed). Each kernel must have run exactly as often as the path calls
+   it, migrations included (two launches per offload and per upload);
+   prefill ms per request and decode ms per step (medians), tokens per
+   wall second, peak memory and the launches are printed. After each
+   serve its offload -> upload of 32 random blocks (rows of one bf16
+   element for Mamba2, 640 bytes for Hymba) equals the plain B5 / B6 (B7
+   / B8 on ``int8_host``) bit for bit, then is timed. On 2 of each model's
+   served layers, one request's prefill at the served prompt length
+   (B15, B14 and B6's ``write_prefill``) and, for Hymba (H 25, Hkv 5, D
+   64), LLaVA (32 / 8 / 128) and Mixtral (48 / 8 / 128), one bf16 paged
+   decode step, through the kernels against their plain versions
+   (phase 4's tolerance: logits and the pools written); the phase's
+   seconds.
 
 B9-B13b (``paged_attention_quant``, ``paged_prefill_attention_quant``,
 ``kv_block_quant``, ``kv_block_dequant``, ``block_gather``,
@@ -202,11 +239,12 @@ B15 also at LLaVA's (variant ``llava``: phase 10's two requests of
 phases 8 and 10, the ``llava`` variant's phase 10's. The launches of
 the serving path's kernels are the sum of the serve phases' (5, 6, 6b
 and 7); a ``d112`` variant carries the Kimi-K2 serve's own. Phase 12's
-launches of B1, B2 and B5 are added to their rows.
+launches of B1, B2 and B5 are added to their rows, and phase 13's of the
+fused decode write, B2, B5-B8, B14 and B15.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``. With ``--only
-kernels`` phases 4-12 are skipped and every launch count in that line is
+kernels`` phases 4-13 are skipped and every launch count in that line is
 the kernel phase's. ``--out PATH`` also writes the full results as JSON.
 Engine latencies in the serve report are virtual time from the A100 cost
 model, not card time.
@@ -345,8 +383,9 @@ SSD_LAUNCHES = {"gram": ("ssd_gram_tc",), "chunk": ("ssd_chunk_tc",),
 TOL_ONE_STEP = {"bf16": dict(atol=2e-3, rtol=8e-3),
                 "f32": dict(atol=3e-5, rtol=3e-5)}
 
-# the kernels each serve phase must launch; the fused RoPE + KV writes
-# once per layer of every decode step and prefill chunk
+# the kernels each batched-prefill serve must launch: the fused RoPE + KV
+# writes once per layer of every decode step and prefill chunk, the
+# attention kernels beside them, and last the two that migrate blocks
 SERVE_KERNELS = {
     "fp16": ("rope_kv_token_write", "paged_attention", "rope_kv_chunk_write",
              "paged_prefill_attention", "block_gather_layers",
@@ -1295,11 +1334,20 @@ def submit(front, build_workload, n_apps, prompt_cap, decode_cap):
 
 
 def serve_phase(card: str, kv_precision: str, params=None, cfg=None,
-                n_apps: int = 4, decode_cap: int = 32):
-    """Serve ``n_apps`` apps (decode segments cut to ``decode_cap``) with a
-    ``kv_precision`` host tier on ``cfg`` (default Qwen2.5-14B); ``params``
-    reuses weights already on the card. Returns the phase's results, its
-    launch counts and the backend."""
+                n_apps: int = 4, decode_cap: int = 32,
+                prompt_cap: int = CTX_SHORT, force_offloads: bool = False):
+    """Serve ``n_apps`` deep_research apps (prompts cut to ``prompt_cap``,
+    decode segments to ``decode_cap``) with a ``kv_precision`` host tier on
+    ``cfg`` (default Qwen2.5-14B); ``params`` reuses weights already on the
+    card; ``force_offloads`` offloads every agent at its tool-call stall
+    (once per call) on the harness's own account. Launch counts are zeroed
+    just before the run and read just after, and each kernel must have run
+    exactly as often as the arch's route calls it: the batched paged
+    prefill (dense and MoE without a window) or ``_prefill_one`` per
+    request (timed per request, its decode steps per step), the paged
+    decode step for every arch but SSM and audio, and two migration
+    launches (K and V) per offload and per upload. Returns the phase's
+    results, its launch counts and the backend."""
     import numpy as np
     import torch
 
@@ -1307,11 +1355,13 @@ def serve_phase(card: str, kv_precision: str, params=None, cfg=None,
     from repro_torch.core.backend import TorchBackend
     from repro_torch.core.costmodel import A100_PCIE
     from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.core.request import ReqState
     from repro_torch.core.temporal import TemporalConfig
     from repro_torch.data.workloads import build_workload
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import MCPFrontend
     from repro_torch.models import graphs as G
+    from repro_torch.train.optimizer import leaves
 
     cfg = cfg or get_config("qwen2_5_14b_serving")
     ecfg = engine_cfg(EngineConfig, TemporalConfig, GPU_BLOCKS, HOST_BLOCKS,
@@ -1323,9 +1373,7 @@ def serve_phase(card: str, kv_precision: str, params=None, cfg=None,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     cache = backend.cache
-    n_params = sum(t.numel() for t in backend.params["layers"].values()) + \
-        sum(backend.params[k].numel()
-            for k in ("embed", "unembed", "final_norm"))
+    n_params = sum(t.numel() for t in leaves(backend.params))
     print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.2f} B params in bf16, pools "
           f"{tuple(cache.k.shape)} x2, host pool {cache.host_k.dtype} "
@@ -1336,9 +1384,26 @@ def serve_phase(card: str, kv_precision: str, params=None, cfg=None,
         assert cache.host_k.dtype == torch.int8
         assert cache.host_scales_k.dtype == torch.float32
         assert cache.host_scales_k.is_pinned()
+    batched = backend.batched_prefill
+    decodes = cfg.arch_type not in ("ssm", "audio")
+    times = {"prefill": [], "decode": []}
+
+    def timed(kind, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t) * 1e3)
+        return run
+
+    if not batched:
+        backend._prefill_one = timed("prefill", backend._prefill_one)
+        if decodes:
+            backend._decode_batch = timed("decode", backend._decode_batch)
     eng = Engine(ecfg, A100_PCIE, backend=backend)
     front = MCPFrontend(eng)
-    submit(front, build_workload, n_apps, prompt_cap=CTX_SHORT,
+    submit(front, build_workload, n_apps, prompt_cap=prompt_cap,
            decode_cap=decode_cap)
 
     # the backend's steps run as CUDA graphs: each bucket's first call
@@ -1346,52 +1411,83 @@ def serve_phase(card: str, kv_precision: str, params=None, cfg=None,
     sg = backend.steps
     ops.reset_launches()
     t0 = time.perf_counter()
-    eng.run(max_time=1e5)
+    stalls = set()
+    while eng.clock < 1e5 and eng.step():
+        for r in list(eng.stalled.values()) if force_offloads else ():
+            if r.state == ReqState.STALLED and (r.rid, r.segment) not in \
+                    stalls and r.offloadable_blocks:
+                stalls.add((r.rid, r.segment))
+                eng._start_offload(r)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     rep = front.report()
 
+    nl = cfg.num_layers
+    generated = sum(len(t) for t in backend.generated.values())
     assert rep["apps_finished"] == n_apps, rep["apps_finished"]
     assert rep["decoded_tokens"] > 0
-    assert rep["offloads"] >= 1, rep["offloads"]
+    assert rep["offloads"] >= 1 and rep["uploads"] >= 1, rep
     assert rep["truncated_prompt_tokens"] == 0
     assert backend.truncated_prompt_tokens == 0
-    missing = [k for k in SERVE_KERNELS[kv_precision] if launches[k] <= 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
-    nl = cfg.num_layers
-    steps = {k: sg.replays[k] for k in G.KINDS}
-    runs = {k: sg.replays[k] + sg.captures[k] for k in G.KINDS}
-    assert steps["decode"] > 0 and steps["prefill"] > 0, steps
-    assert launches["rope_kv_token_write"] == runs["decode"] * nl, \
-        (launches, runs)
-    assert launches["rope_kv_chunk_write"] == runs["prefill"] * nl, \
-        (launches, runs)
-    assert launches["kv_token_write"] == launches["kv_chunk_write"] == 0, \
-        "the serve wrote K/V through the standalone B1 / B3"
-    bpb = A100_PCIE.block_bytes_for(kv_precision)
-    if kv_precision == "int8_host":
-        assert rep["uploads"] >= 1, rep["uploads"]
-        for key in ("d2h_bytes", "h2d_bytes"):
-            assert rep[key] > 0 and rep[key] % bpb == 0, (key, rep[key])
+    assert (generated > 0) == decodes, generated
     for rid, toks in backend.generated.items():
         assert toks and all(0 <= t < cfg.vocab_size for t in toks), rid
     for rid, logits in backend.last_prefill_logits.items():
         assert logits.shape == (cfg.vocab_size,), rid
         assert bool(np.isfinite(logits).all()), rid
-    generated = sum(len(t) for t in backend.generated.values())
+    steps = {k: sg.replays[k] for k in G.KINDS}
+    runs = {k: sg.replays[k] + sg.captures[k] for k in G.KINDS}
+    n_pre = len(times["prefill"])
+    # every kernel of the arch's route, exactly as often as it calls it;
+    # the other serving kernels never
+    want = {k: 0 for k in ("kv_token_write", "kv_chunk_write",
+                           "ssd_scan", "swa_attention")}
+    want["rope_kv_token_write"] = want["paged_attention"] = \
+        runs["decode"] * nl
+    want["rope_kv_chunk_write"] = want["paged_prefill_attention"] = \
+        runs["prefill"] * nl
+    # two migration launches (K and V) per offload and per upload, and on
+    # the per-request route two B6 launches per prefill where the arch has
+    # a K/V pool
+    for kernels in SERVE_KERNELS.values():
+        want.update({k: 0 for k in kernels[-2:]})
+    gather, scatter = SERVE_KERNELS[kv_precision][-2:]
+    want[gather], want[scatter] = 2 * rep["offloads"], 2 * rep["uploads"]
+    if batched:
+        assert steps["decode"] > 0 and steps["prefill"] > 0, steps
+    else:
+        assert n_pre > 0 and not backend.last_prefill_logits
+        assert runs["prefill"] == runs["head"] == 0, runs
+        assert (runs["decode"] > 0) == decodes, runs
+        if cfg.arch_type != "ssm":
+            want["block_scatter_layers"] += 2 * n_pre
+        if cfg.sliding_window is not None:
+            want["swa_attention"] = n_pre * nl
+        if cfg.arch_type in ("ssm", "hybrid"):
+            want["ssd_scan"] = n_pre * nl
+    got = {k: launches[k] for k in want}
+    assert got == want, f"launches on the main path {got}, expected {want}"
+    bpb = A100_PCIE.block_bytes_for(kv_precision)
+    for key in ("d2h_bytes", "h2d_bytes"):
+        assert rep[key] > 0 and rep[key] % bpb == 0, (key, rep[key])
     peak = torch.cuda.max_memory_allocated()
+    med = {k: float(np.median(v)) if v else None for k, v in times.items()}
     out = dict(
-        model=cfg.name, kv_precision=kv_precision, apps=n_apps,
-        apps_finished=rep["apps_finished"],
+        model=cfg.name, layers=nl, kv_precision=kv_precision, apps=n_apps,
+        prompt_cap=prompt_cap, apps_finished=rep["apps_finished"],
         decoded_tokens=rep["decoded_tokens"], generated_tokens=generated,
-        offloads=rep["offloads"], uploads=rep["uploads"],
+        offloads=rep["offloads"], forced_offloads=len(stalls),
+        uploads=rep["uploads"],
         d2h_bytes=rep["d2h_bytes"], h2d_bytes=rep["h2d_bytes"],
         engine_block_bytes=bpb, wall_s=wall, setup_s=setup_s,
         generated_tokens_per_wall_s=generated / wall,
         decode_steps=steps["decode"], prefill_chunks=steps["prefill"],
         head_calls=steps["head"], graphs_captured=dict(sg.captures),
-        capture_s=sg.capture_s,
+        capture_s=sg.capture_s, prefills=n_pre,
+        prefill_ms_median=med["prefill"],
+        prefill_ms_mean=float(np.mean(times["prefill"])) if n_pre else None,
+        decode_ms_median=med["decode"],
         max_memory_allocated_bytes=peak, launches=launches,
         virtual_avg_latency_s=rep["avg_latency"],
         virtual_p90_latency_s=rep["p90_latency"])
@@ -1399,16 +1495,27 @@ def serve_phase(card: str, kv_precision: str, params=None, cfg=None,
           f"({generated / wall:.1f} tokens per wall second), peak device "
           f"memory {peak / 2**30:.2f} GiB", flush=True)
     print(f"  apps {rep['apps_finished']}/{n_apps}, engine decoded_tokens "
-          f"{rep['decoded_tokens']}, offloads {rep['offloads']}, uploads "
+          f"{rep['decoded_tokens']}, offloads {rep['offloads']} "
+          f"({len(stalls)} forced by the harness at a stall), uploads "
           f"{rep['uploads']}, d2h_bytes {rep['d2h_bytes']}, h2d_bytes "
           f"{rep['h2d_bytes']} (engine's {kv_precision} block: {bpb} B); "
           f"engine latency (virtual time, A100 cost model, not card time) "
           f"avg {rep['avg_latency']:.1f} s", flush=True)
+    if not batched:
+        print(f"  [{card}] {n_pre} requests prefilled one at a time at "
+              f"{med['prefill']:.2f} ms (median; mean "
+              f"{out['prefill_ms_mean']:.2f})"
+              + (f", {len(times['decode'])} decode steps at "
+                 f"{med['decode']:.3f} ms (median)" if decodes else
+                 ", no decode step: the JAX backend decodes no token for "
+                 "this arch either") + f"; generated tokens {generated}",
+              flush=True)
     print(f"  {steps['decode']} decode steps, {steps['prefill']} prefill "
           f"chunks and {steps['head']} head calls of {nl} layers, replayed "
           f"from CUDA graphs: {dict(sg.captures)} buckets captured in "
           f"{sg.capture_s:.2f} s (each capture runs its step once eagerly); "
-          f"launches on the main path: {launches}", flush=True)
+          f"launches on the main path: "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
     return out, launches, backend
 
 
@@ -1589,14 +1696,18 @@ def graph_phase(card: str, cfg, params, k_pool, v_pool,
 # phase 4: one bf16 step at Qwen2.5-14B's widths, kernels against plain
 # ---------------------------------------------------------------------------
 
-# the plain version of each kernel entry the paged steps call
+# the plain version of each kernel entry the paged steps and the
+# per-request prefill call (and ``ssd_scan_ref``, whose scan needs no
+# chunk, for ``ssd_scan``)
 STEP_PLAIN = {"rope_kv_token_write": "rope_kv_token_write_ref",
               "paged_attention": "paged_attention_ref",
               "rope_kv_chunk_write": "rope_kv_chunk_write_ref",
-              "paged_prefill_attention": "paged_prefill_attention_ref"}
+              "paged_prefill_attention": "paged_prefill_attention_ref",
+              "swa_attention": "swa_attention_ref",
+              "block_scatter_layers": "block_scatter_layers_ref"}
 # a step through the kernels against the same step through their plain
-# versions: the two differ only in the attention kernels, by at most one
-# bf16 step of each output (TOL); two layers of bf16 products, norms and
+# versions: the two differ only in the attention and scan kernels, by at
+# most one bf16 step of each output (TOL, TOL_SSD); two layers of bf16 products, norms and
 # the head carry that into the hidden states and logits by a few steps,
 # so each output must lie within four bf16 steps of the largest one
 # (2**-5 of max |plain|); the argmax must agree on every row whose top
@@ -1616,8 +1727,6 @@ def step_check(card: str) -> dict:
     import torch
 
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import ref as R
     from repro_torch.models import model as M
 
     cfg = dataclasses.replace(get_config("qwen2_5_14b_serving"),
@@ -1639,62 +1748,131 @@ def step_check(card: str) -> dict:
         "prefill_chunk": lambda: M.head_logits(
             cfg, params, M.paged_prefill_step(cfg, params, *pools,
                                               *t(pre))[:, -1])}
-    out = {}
-    for name, fn in steps.items():
-        snap = [p.clone() for p in pools]
-        got = fn().float()
-        for p, s in zip(pools, snap):
-            p.copy_(s)
-        kernels = {k: getattr(ops, k) for k in STEP_PLAIN}
-        try:
-            for k, plain in STEP_PLAIN.items():
-                setattr(ops, k, getattr(R, plain))
-            want = fn().float()
-        finally:
-            for k, f in kernels.items():
-                setattr(ops, k, f)
-        for p, s in zip(pools, snap):
-            p.copy_(s)
-        torch.cuda.synchronize()
-        assert bool(torch.isfinite(got).all()), name
-        err = float((got - want).abs().max())
-        tol = STEP_REL * float(want.abs().max())
-        top2 = want.topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
-        agree = got.argmax(-1) == want.argmax(-1)
-        out[name] = dict(max_abs_err=err, tol=tol,
-                         max_abs_logit=float(want.abs().max()),
-                         argmax_agree_rows=int(agree.sum()),
-                         rows=int(agree.numel()),
-                         clear_rows=int(clear.sum()))
-        print(f"  [{card}] bf16 {name}, {cfg.num_layers} layers at Qwen2.5-"
-              f"14B's widths, kernels vs plain versions: logits max abs err "
-              f"{err:.4g} (tolerance {tol:.4g}, max |logit| "
-              f"{out[name]['max_abs_logit']:.4g}); argmax agrees on "
-              f"{int(agree.sum())} of {agree.numel()} rows ({int(clear.sum())}"
-              f" rows with a clear top logit)", flush=True)
-        assert err <= tol, (name, err, tol)
-        assert bool(agree[clear].all()), f"{name}: argmax differs"
+    return {name: hold_step(card, f"{cfg.num_layers} layers at Qwen2.5-"
+                            f"14B's widths", name, fn, pools)
+            for name, fn in steps.items()}
+
+
+def hold_step(card: str, what: str, name: str, fn, pools) -> dict:
+    """``fn()``, a step's logits, eagerly through the kernels and through
+    their plain versions (``STEP_PLAIN``, swapped into ``ops`` for this
+    check only), each from the same ``pools`` (restored after each run):
+    the logits within ``STEP_REL`` of the largest one, the argmax equal on
+    every row whose top two logits are clearly apart, and the pools the
+    step wrote within ``STEP_REL`` of their largest value. Returns the
+    numbers."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+
+    plain = {k: getattr(R, v) for k, v in STEP_PLAIN.items()}
+    plain["ssd_scan"] = lambda x, dt, a, b, c, chunk=64: R.ssd_scan_ref(
+        x, dt, a, b, c)
+    snap = [p.clone() for p in pools]
+    got = fn().float()
+    wrote = [p.clone() for p in pools]
+    for p, s in zip(pools, snap):
+        p.copy_(s)
+    kernels = {k: getattr(ops, k) for k in plain}
+    try:
+        for k, f in plain.items():
+            setattr(ops, k, f)
+        want = fn().float()
+    finally:
+        for k, f in kernels.items():
+            setattr(ops, k, f)
+    pool_err, pool_tol = 0.0, 0.0
+    for p, w in zip(pools, wrote):
+        pool_err = max(pool_err, float((w.float() - p.float()).abs().max()))
+        pool_tol = max(pool_tol, STEP_REL * float(p.float().abs().max()))
+    for p, s in zip(pools, snap):
+        p.copy_(s)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()), name
+    err = float((got - want).abs().max())
+    tol = STEP_REL * float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    agree = got.argmax(-1) == want.argmax(-1)
+    out = dict(max_abs_err=err, tol=tol,
+               max_abs_logit=float(want.abs().max()),
+               argmax_agree_rows=int(agree.sum()), rows=int(agree.numel()),
+               clear_rows=int(clear.sum()), pool_max_abs_err=pool_err,
+               pool_tol=pool_tol)
+    print(f"  [{card}] bf16 {name}, {what}, kernels vs plain versions: "
+          f"logits max abs err {err:.4g} (tolerance {tol:.4g}, max |logit| "
+          f"{out['max_abs_logit']:.4g}); argmax agrees on {int(agree.sum())}"
+          f" of {agree.numel()} rows ({int(clear.sum())} rows with a clear "
+          f"top logit); pools written max abs err {pool_err:.4g} "
+          f"(tolerance {pool_tol:.4g})", flush=True)
+    assert err <= tol, (name, err, tol)
+    assert bool(agree[clear].all()), f"{name}: argmax differs"
+    assert pool_err <= pool_tol, (name, pool_err, pool_tol)
     return out
 
 
 def migration_times(card: str, cache, reps: int = 10) -> dict:
-    """Wall time of ``cache.offload`` and ``cache.upload`` of M_BLOCKS
-    blocks (the kernel phase's ids: the last live block, the scratch block
-    and 30 others) to and from host blocks 0..M-1, after one warm-up call
-    each, every call ending in a synchronise. Wire bytes are what crosses
-    PCIe: the pools' bytes, or the int8 payload plus its scales."""
+    """``cache.offload`` of M_BLOCKS blocks (the kernel phase's ids: the
+    last live block, the scratch block and 30 others, filled with random
+    values from seed 0) to host blocks 0..M-1 and ``cache.upload`` of
+    those pages to M other random blocks, held bit for bit against the
+    plain versions: the host pages equal the plain gather's (B5; B7's
+    payload and scales on an int8 tier), the pools the plain scatter's of
+    those pages (B6; B8) and nothing else. Then the wall time of offload
+    and upload to and from the same ids, after one warm-up call each,
+    every call ending in a synchronise. Wire bytes are what crosses PCIe:
+    the pools' bytes, or the int8 payload plus its scales."""
     import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref as R
 
     nb = cache.num_blocks + 1
-    ids = np.concatenate([[nb - 1, nb - 2], np.random.default_rng(0).choice(
+    rng = np.random.default_rng(0)
+    ids = np.concatenate([[nb - 1, nb - 2], rng.choice(
         nb - 2, M_BLOCKS - 2, replace=False)]).tolist()
+    dst = rng.choice(np.setdiff1d(np.arange(nb), ids), M_BLOCKS,
+                     replace=False).tolist()
     host = list(range(M_BLOCKS))
     hosts = [cache.host_k, cache.host_v]
-    if cache.host_scales_k is not None:
+    quant = cache.host_scales_k is not None
+    if quant:
         hosts += [cache.host_scales_k, cache.host_scales_v]
+    pools = (cache.k, cache.v)
+    gen = torch.Generator(device=cache.k.device).manual_seed(0)
+    si, di = (torch.tensor(x, device=cache.k.device) for x in (ids, dst))
+    for pool in pools:
+        for i in (si, di):
+            pool[:, i] = torch.randn(
+                (pool.shape[0], M_BLOCKS) + tuple(pool.shape[2:]),
+                generator=gen, device=pool.device).to(pool.dtype)
+    if quant:
+        (kq, ks), (vq, vs) = (R.block_gather_quant_layers_ref(p, si)
+                              for p in pools)
+        pages = [kq, vq, ks, vs]
+        want = [R.block_scatter_dequant_layers_ref(p.clone(), di, q, sc)
+                for p, q, sc in ((cache.k, kq, ks), (cache.v, vq, vs))]
+    else:
+        pages = [R.block_gather_layers_ref(p, si) for p in pools]
+        want = [R.block_scatter_layers_ref(p.clone(), di, g)
+                for p, g in zip(pools, pages)]
+    cache.offload(ids, host)
+    cache.upload(host, dst)
+    torch.cuda.synchronize()
+    for h, page in zip(hosts, pages):
+        assert torch.equal(h[:, host], page.cpu()), "offload"
+    for pool, w in zip(pools, want):
+        assert torch.equal(pool, w), "upload"
+    del want
+    row = cache.k.shape[3] * cache.k.shape[4] * cache.k.element_size()
     wire = sum(h[:, :M_BLOCKS].numel() * h.element_size() for h in hosts)
-    out = {"blocks": M_BLOCKS, "wire_bytes": wire, "reps": reps}
+    out = {"blocks": M_BLOCKS, "wire_bytes": wire, "reps": reps,
+           "row_bytes": row, "bit_exact": True}
+    print(f"  [{card}] {cache.host_precision} offload -> upload of "
+          f"{M_BLOCKS} blocks of pools {tuple(cache.k.shape)} ({row}-byte "
+          f"rows) equals the plain {'B7 / B8' if quant else 'B5 / B6'} bit "
+          f"for bit", flush=True)
     for op, fn in (("offload", lambda: cache.offload(ids, host)),
                    ("upload", lambda: cache.upload(host, ids))):
         w = wall_ms(fn, n=reps)
@@ -3105,6 +3283,160 @@ def cache_methods(card: str) -> tuple:
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the windowed MoE, hybrid, VLM, SSM and audio families served
+# through the engine at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept (None: uncut), prompt cap, host tiers): Mixtral-8x22B
+# at Kimi-K2's depth cut (2 of its 56 layers: 5.2e9 parameters, 10.5 GB),
+# the rest uncut; prompts cut to 256 tokens, Hymba's to 1536 so that its
+# 1024-token window bites in B15's prefill; Hymba also serves with the
+# int8 host tier. Two deep_research apps each, decode segments cut to 16
+ENGINE_FAMILIES = (("mixtral_8x22b", 2, 256, ("fp16",)),
+                   ("hymba_1_5b", None, 1536, ("fp16", "int8_host")),
+                   ("llava_next_mistral_7b", None, 256, ("fp16",)),
+                   ("mamba2_130m", None, 256, ("fp16",)),
+                   ("whisper_large_v3", None, 256, ("fp16",)))
+FAMILY_APPS, FAMILY_DECODE = 2, 16
+
+
+def first_layers(cfg, params):
+    """``cfg`` and ``params`` cut to their first ``STEP_LAYERS`` decoder
+    layers (an audio model's encoder kept whole); the weights are views."""
+    import dataclasses
+
+    from repro_torch.train.optimizer import tree_map
+
+    key = "decoder" if cfg.arch_type == "audio" else "layers"
+    return dataclasses.replace(cfg, num_layers=STEP_LAYERS), dict(
+        params, **{key: tree_map(lambda v: v[:STEP_LAYERS], params[key])})
+
+
+def family_step_check(card: str, cfg, params) -> dict:
+    """One bf16 ``paged_decode_step`` on ``STEP_LAYERS`` of the served
+    model's layers (its weights, at full width) at the serve's shape
+    (``step_inputs``, random bf16 pools from seed 0), through the kernels
+    and through their plain versions (``hold_step``)."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    cut, sub = first_layers(cfg, params)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    nb = B * (CTX_SHORT // BS)
+    shape = (STEP_LAYERS, nb + 1, BS, cfg.num_kv_heads, cfg.head_dim)
+    pools = [torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in "kv"]
+    dec = [torch.from_numpy(a).cuda() for a in step_inputs(cut, nb)[0]]
+    return hold_step(
+        card, f"{STEP_LAYERS} of {cfg.name}'s layers, H {cfg.num_heads}, "
+        f"Hkv {cfg.num_kv_heads}, D {cfg.head_dim}", "decode_step",
+        lambda: M.paged_decode_step(cut, sub, *pools, *dec), pools)
+
+
+def family_prefill_check(card: str, backend, prompt_len: int) -> dict:
+    """What ``_prefill_one`` does for one request of ``prompt_len`` random
+    tokens (seed 0), on ``STEP_LAYERS`` of the served model's layers at
+    full width: the dense-cache ``prefill`` of the backend's batch (zero
+    patches or frames included; B15 where the arch has a window, B14 for
+    its SSM heads) and, where the arch has a K/V pool, ``write_prefill``
+    of its K/V (B6) into random blocks of a pool at the served block size,
+    as many as the text spans (fewer than the K/V spans for a VLM). Held
+    through the kernels against their plain versions (``hold_step``: the
+    last position's logits and the pools); in each run the written blocks
+    hold the prefill's K/V bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kvcache.paged import PagedKVCache
+    from repro_torch.models import model as M
+
+    cfg = backend.cfg
+    cut, sub = first_layers(cfg, backend.params)
+    rng = np.random.default_rng(0)
+    batch = backend.prefill_batch(
+        rng.integers(0, cfg.vocab_size, prompt_len).tolist())
+    n = -(-prompt_len // BS)
+    blocks = rng.permutation(2 * n)[:n].tolist()
+    pc = PagedKVCache(cut, 2 * n, BS, dtype=M.torch_dtype(cfg),
+                      device="cuda")
+    has_kv = cfg.arch_type != "ssm"
+
+    def fn():
+        logits, cache = M.prefill(cut, sub, batch)
+        if has_kv:
+            seqs = cache["k"][:, 0], cache["v"][:, 0]
+            pc.write_prefill(blocks, *seqs)
+            for pool, seq in zip((pc.k, pc.v), seqs):
+                rows = pool[:, blocks].flatten(1, 2)
+                m = min(rows.shape[1], seq.shape[1])
+                assert torch.equal(rows[:, :m], seq[:, :m].to(
+                    pool.dtype)), "write_prefill"
+        return logits[:, -1]
+
+    what = f"{STEP_LAYERS} of {cfg.name}'s layers, one {prompt_len}-token " \
+        "request"
+    if has_kv:
+        span = prompt_len + (cfg.num_patch_tokens if "patches" in batch
+                             else 0)
+        what += f" (K/V of {span} positions into {n} blocks)"
+    return hold_step(card, what, "prefill", fn,
+                     [pc.k, pc.v] if has_kv else [])
+
+
+def engine_families_phase(card: str) -> tuple:
+    """Phase 13: each of ``ENGINE_FAMILIES`` served (``serve_phase``, every
+    tool-call stall offloaded by the harness) on random bf16 weights from
+    seed 0, one model after another, each freed before the next; after
+    each serve its migrations held against the plain versions and timed
+    (``migration_times``); after each model's first serve one request's
+    prefill (``family_prefill_check``) and, for the archs that decode, one
+    paged decode step (``family_step_check``) held against the plain
+    versions. Returns the results and the summed launch counts of the
+    serves."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+
+    results, total = {}, {}
+    for arch, layers, cap, tiers in ENGINE_FAMILIES:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        res, params = {"reduced": None if layers is None else
+                       f"{layers} of {get_config(arch).num_layers} layers"}, \
+            None
+        for tier in tiers:
+            print(f"  [{arch}, {tier} host tier, prompts cut to {cap}]",
+                  flush=True)
+            out, counts, backend = serve_phase(
+                card, tier, params, cfg, n_apps=FAMILY_APPS,
+                decode_cap=FAMILY_DECODE, prompt_cap=cap,
+                force_offloads=True)
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            out["migration"] = migration_times(card, backend.cache, reps=5)
+            params = backend.params
+            if tier == tiers[0]:
+                out["prefill_check"] = family_prefill_check(card, backend,
+                                                            cap)
+                if cfg.arch_type not in ("ssm", "audio"):
+                    out["step_check"] = family_step_check(card, cfg, params)
+            res[tier] = out
+            backend.cache = None
+            del backend
+            gc.collect()
+            torch.cuda.empty_cache()
+        results[arch] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results, total
+
+
 def run_examples(card: str) -> dict:
     """Each ``examples/torch_*.py`` at its defaults, in a subprocess on the
     card; a non-zero exit fails the run. Returns each one's wall s."""
@@ -3212,7 +3544,7 @@ def main() -> int:
     if args.only == "kernels":
         launches = dict(ops.launches)
         checked = serve = migration = families = check = None
-        vlm_audio = trained = phase12 = None
+        vlm_audio = trained = phase12 = families13 = None
     else:
         launches = {k: ops.launches[k] for k in KERNEL_PHASE_ONLY}
         checked, serve, migration, families, check = serving_phases(
@@ -3245,6 +3577,18 @@ def main() -> int:
                        dryrun=dryrun_phase())
         phase_s["cache_examples_dryrun"] = time.perf_counter() - t0
         print(f"  phase 12 took {phase_s['cache_examples_dryrun']:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        print(f"[engine families] Mixtral-8x22B (2 layers), Hymba-1.5B "
+              f"(fp16 and int8_host), LLaVA-NeXT-Mistral-7B, Mamba2-130M, "
+              f"Whisper-large-v3 through the engine: {FAMILY_APPS} "
+              f"deep_research apps each, decode segments cut to "
+              f"{FAMILY_DECODE}", flush=True)
+        families13, counts = engine_families_phase(card)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        phase_s["engine_families"] = time.perf_counter() - t0
+        print(f"  phase 13 took {phase_s['engine_families']:.1f} s",
               flush=True)
 
     if serve is not None:            # the D 112 rows ran in the Kimi serve
@@ -3290,7 +3634,7 @@ def main() -> int:
                            "data_flops"] for v in ("mamba2", "hymba")},
                    serve=serve, migration=migration, families=families,
                    check=check, vlm_audio=vlm_audio, train=trained,
-                   phase12=phase12)
+                   phase12=phase12, engine_families=families13)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -10,6 +10,11 @@ card and without ``--device cpu`` it fails.
 
     python examples/torch_serve_multiagent.py [--apps 3]
     python examples/torch_serve_multiagent.py --device cpu --apps 2
+    python examples/torch_serve_multiagent.py --device cpu --arch hymba_1_5b
+
+Every arch serves as in the JAX package's example: windowed, hybrid,
+VLM, SSM and audio archs prefill one request at a time through the
+dense-cache prefill, and SSM and audio archs decode no token.
 """
 import argparse
 import os
@@ -32,8 +37,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--apps", type=int, default=3)
     ap.add_argument("--arch", default="glm4_9b",
-                    help="a dense or MoE arch id without a sliding window "
-                         "(reduced smoke variant)")
+                    help="any assigned arch id (reduced smoke variant)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 

@@ -6,8 +6,12 @@ platform cost model. ``SimBackend`` is a no-op data plane (pure
 discrete-event simulation). ``TorchBackend`` runs the model in PyTorch
 against a real paged KV cache, on the card through the CUDA kernels of
 ``repro_torch.kernels``, and moves offloaded KV to pinned host memory and
-back. It is the counterpart of ``repro.core.backend.JaxBackend`` for dense
-and MoE archs without a sliding window. On the card each padded step
+back. It is the counterpart of ``repro.core.backend.JaxBackend`` and takes
+every arch it takes, with its semantics: dense and MoE archs without a
+sliding window prefill in batched paged chunks, every other arch one
+request at a time through the dense-cache ``prefill``, whose K/V is
+written into the paged pool; SSM and audio archs decode no token on this
+path. On the card each padded step
 shape runs as one CUDA graph (``models.graphs.StepGraphs``, the counterpart of the
 JAX backend's jitted steps); on the CPU the steps run eagerly. ``TemporalConfig(kv_precision=
 "int8_host")`` gives the cache an int8 host tier: ``copy_out`` and
@@ -135,12 +139,6 @@ class TorchBackend:
 
     def __init__(self, cfg, engine_cfg, platform, seed: int = 0,
                  device="cuda", params=None):
-        if cfg.arch_type not in ("dense", "moe") \
-                or cfg.sliding_window is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: TorchBackend serves dense and MoE archs "
-                "without a sliding window; windowed, SSM, hybrid, VLM and "
-                "audio archs come in later slices of the port")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchBackend(device='cuda') found no CUDA "
@@ -176,6 +174,11 @@ class TorchBackend:
         self.prefill_chunk = 32
         self.steps = (G.StepGraphs(cfg, device) if device.type == "cuda"
                       else G.EagerSteps(cfg))
+        # the batched paged prefill serves the archs whose layer body the
+        # paged steps compute exactly (dense and MoE without a window);
+        # every other arch prefills one request at a time
+        self.batched_prefill = (cfg.arch_type in ("dense", "moe")
+                                and cfg.sliding_window is None)
 
     # -- engine hooks ----------------------------------------------------------
     def decode(self, reqs):
@@ -184,7 +187,11 @@ class TorchBackend:
             return
         need = [r for r in reqs if self._needs_prefill(r)]
         if need:
-            self._prefill_batch(need)
+            if self.batched_prefill:
+                self._prefill_batch(need)
+            else:
+                for r in need:
+                    self._prefill_one(r)
         self._decode_batch(reqs)
 
     def _needs_prefill(self, r) -> bool:
@@ -294,7 +301,58 @@ class TorchBackend:
             self._prefill_sig[r.rid] = tuple(r.gpu_blocks[:n_blocks])
             self.cache_len[r.rid] = len(toks)
 
+    def _prefill_one(self, req):
+        """Dense-cache ``prefill`` of one request, its K/V written into the
+        paged pool where the arch has one. As in the JAX backend,
+        ``cache_len`` counts the text tokens only, and no prefill logits
+        are kept."""
+        toks, _ = self._prefill_tokens(req)
+        _, cache = M.prefill(self.cfg, self.params, self.prefill_batch(toks))
+        if "k" in cache:
+            # (L, 1, S, Hkv, D) -> the paged pool
+            self.cache.write_prefill(req.gpu_blocks, cache["k"][:, 0],
+                                     cache["v"][:, 0])
+        n_blocks = -(-len(toks) // self.block_tokens)
+        self._prefill_sig[req.rid] = tuple(req.gpu_blocks[:n_blocks])
+        self.cache_len[req.rid] = len(toks)
+
+    def prefill_batch(self, toks: List[int]) -> dict:
+        """The dense-cache ``prefill`` batch of one request's tokens: zero
+        patches ahead of a VLM's text, zero frames for an audio model."""
+        cfg, dev = self.cfg, self.device
+        batch = {"tokens": torch.tensor([toks], dtype=torch.int32,
+                                        device=dev)}
+        # the JAX backend's zeros are float32, which the model casts to its
+        # own dtype: the same values as these
+        dtype = M.torch_dtype(cfg)
+        if cfg.arch_type == "vlm":
+            batch["patches"] = torch.zeros(
+                (1, cfg.num_patch_tokens, cfg.d_model), dtype=dtype,
+                device=dev)
+        if cfg.arch_type == "audio":
+            batch["frames"] = torch.zeros(
+                (1, cfg.encoder_frames, cfg.d_model), dtype=dtype,
+                device=dev)
+        return batch
+
     def _decode_batch(self, reqs):
+        if self.cfg.arch_type in ("ssm", "audio"):
+            return      # no paged decode state: no token, as in JAX
+        inputs, wrote = self.decode_inputs(reqs)
+        logits = self.steps.decode(self.params, self.cache.k, self.cache.v,
+                                   *inputs)
+        # read before the next step: a replay overwrites ``logits``
+        nxt = torch.argmax(logits[:len(reqs)], dim=-1).cpu().numpy()
+        positions = inputs[2]
+        for i, r in enumerate(reqs):
+            self.generated.setdefault(r.rid, []).append(int(nxt[i]))
+            if wrote[i]:
+                self.cache_len[r.rid] = int(positions[i]) + 1
+
+    def decode_inputs(self, reqs):
+        """The padded int32 inputs (numpy) of the decode step of ``reqs``
+        (tokens, tables, positions, attn_lens, slots), and per request
+        whether its new token's K/V has a slot."""
         bs = self.block_tokens
         b = len(reqs)
         bb = _bucket(b)
@@ -319,11 +377,4 @@ class TorchBackend:
             # exactly-full rows drop the new token's KV (scratch write) and
             # attend over the existing context only
             attn_lens[i] = cl + (1 if wrote[i] else 0)
-        logits = self.steps.decode(self.params, self.cache.k, self.cache.v,
-                                   toks, tables, positions, attn_lens, slots)
-        # read before the next step: a replay overwrites ``logits``
-        nxt = torch.argmax(logits[:b], dim=-1).cpu().numpy()
-        for i, r in enumerate(reqs):
-            self.generated.setdefault(r.rid, []).append(int(nxt[i]))
-            if wrote[i]:
-                self.cache_len[r.rid] = int(positions[i]) + 1
+        return (toks, tables, positions, attn_lens, slots), wrote

@@ -104,7 +104,10 @@ class PagedKVCache:
     # ---- write path ---------------------------------------------------------
     def write_prefill(self, blocks: List[int], k_seq, v_seq):
         """k_seq/v_seq: (L, S, Hkv, D) for one request; scatter into blocks
-        across every layer in one kernel launch per tensor."""
+        across every layer in one kernel launch per tensor. Where S spans
+        more blocks than the request holds (a VLM's K/V covers its patches
+        ahead of the text), the leading blocks are written and the rest is
+        dropped, as the JAX scatter's grid over the given blocks does."""
         bs = self.block_size
         nl, s = k_seq.shape[:2]
         n = -(-s // bs)
@@ -112,8 +115,11 @@ class PagedKVCache:
         if pad:
             k_seq = torch.nn.functional.pad(k_seq, (0, 0, 0, 0, 0, pad))
             v_seq = torch.nn.functional.pad(v_seq, (0, 0, 0, 0, 0, pad))
-        kb = k_seq.reshape(nl, n, bs, *k_seq.shape[2:]).to(self.k.dtype)
-        vb = v_seq.reshape(nl, n, bs, *v_seq.shape[2:]).to(self.v.dtype)
+        m = len(blocks[:n])
+        kb = k_seq.reshape(nl, n, bs, *k_seq.shape[2:])[:, :m].to(
+            self.k.dtype)
+        vb = v_seq.reshape(nl, n, bs, *v_seq.shape[2:])[:, :m].to(
+            self.v.dtype)
         idx = self._ids(blocks[:n])
         ops.block_scatter_layers(self.k, idx, kb.contiguous())
         ops.block_scatter_layers(self.v, idx, vb.contiguous())

@@ -1,5 +1,7 @@
-"""Decoder stacks: the dense and MoE stacks on the paged KV pool (batched
-decode and chunked suffix prefill, the serving path), the dense-cache
+"""Decoder stacks: the attention stacks on the paged KV pool (batched
+decode and chunked suffix prefill, the serving path: dense and MoE, and
+the decode of the windowed, hybrid and VLM stacks with the JAX package's
+paged body), the dense-cache
 ``prefill`` / ``decode_step`` of the dense, VLM, MoE, SSM (Mamba2) and
 hybrid (Hymba: attention and SSM heads in parallel) stacks, and the
 training ``forward`` of all of them.
@@ -86,18 +88,26 @@ def _layer(stacked, i):
 
 def _ffn(cfg, lp, h, valid=None):
     """Pre-norm FFN residual block h + ffn(rms_norm(h)), where ffn is the
-    dense SwiGLU or, in a layer with experts, the MoE FFN. ``valid`` (h's
-    leading shape, True = real token) keeps the padded rows of the paged
-    steps' buckets out of the experts' capacity."""
-    hn = L.rms_norm(h, lp["mlp_norm"])
+    dense SwiGLU or, in a layer with experts, the MoE FFN, picked by the
+    layer's params (h alone in a layer with neither, as the JAX paged
+    bodies do). ``valid`` (h's leading shape, True = real token) keeps the
+    padded rows of the paged steps' buckets out of the experts' capacity."""
     if "we1" in lp:
+        hn = L.rms_norm(h, lp["mlp_norm"])
         return h + MOE.moe_ffn(cfg, lp, hn, pad_mask=valid)
-    return h + L.mlp(lp, hn)
+    if "w1" in lp:
+        return h + L.mlp(lp, L.rms_norm(h, lp["mlp_norm"]))
+    return h
 
 
 def paged_decode(cfg, stacked, x, k_pool, v_pool, tables, positions,
                  attn_lens, slots):
     """Single-token batched decode against the paged KV pool.
+
+    The body of every attention arch on the engine path, as the JAX
+    package's: attention without a window (B2 has none), no SSM branch
+    and no fusion norms in a hybrid layer, the FFN its params hold; the
+    layer's other params are left alone.
 
     x:             (B, 1, d) embedded tokens
     k_pool/v_pool: (L, N+1, bs, Hkv, D) pools (incl. scratch block),

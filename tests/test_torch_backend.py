@@ -228,11 +228,28 @@ def test_readmitted_request_is_reprefilled(same_ids):
 
 
 def test_unported_archs_raise_and_name_the_later_slice():
-    """Windowed archs, dense or MoE, are not served by the engine path:
-    the JAX backend's paged decode attends past the window."""
+    """Windowed archs, dense or MoE, are taken (they once were refused):
+    as in the JAX backend, each request prefills alone through the
+    dense-cache ``prefill`` (the window applies) and decodes through the
+    paged step, which attends past the window. A 12-token prompt decoded
+    8 steps past the 8-token window gives JaxBackend's tokens, cache
+    length and prefill signature."""
     ecfg = EngineConfig(mode="baseline", gpu_blocks=8, host_blocks=8)
-    for cfg in (ModelConfig(**dict(TINY, arch_type="moe", num_experts=4,
-                                   experts_per_token=2, sliding_window=8)),
-                ModelConfig(**dict(TINY, sliding_window=8))):
-        with pytest.raises(NotImplementedError, match="later slices"):
-            TorchBackend(cfg, ecfg, A100_PCIE, device="cpu")
+    jecfg = JEngineConfig(mode="baseline", gpu_blocks=8, host_blocks=8)
+    prompt = [int(t) for t in np.random.default_rng(4).integers(0, 128, 12)]
+    for kw in (dict(arch_type="moe", num_experts=4, experts_per_token=2,
+                    sliding_window=8), dict(sliding_window=8)):
+        jback = JaxBackend(JModelConfig(**dict(TINY, **kw)), jecfg, J_A100)
+        back = TorchBackend(ModelConfig(**dict(TINY, **kw)), ecfg, A100_PCIE,
+                            device="cpu", params=M.load_jax_params(
+                                jax.tree.map(np.asarray, jback.params),
+                                "cpu"))
+        jreq, req = mk_req("r", prompt, [3, 1]), mk_req("r", prompt, [3, 1])
+        for _ in range(8):
+            jback.decode([jreq])
+            back.decode([req])
+        assert back.generated["r"] == jback.generated["r"]
+        assert len(back.generated["r"]) == 8
+        assert back.cache_len == jback.cache_len == {"r": 20}
+        assert back._prefill_sig == jback._prefill_sig == {"r": (3,)}
+        assert back.last_prefill_logits == {}

@@ -77,6 +77,19 @@ def test_serve_multiagent_matches_the_jax_example():
     assert sum(map(len, backend.generated.values())) == rep["decoded_tokens"]
 
 
+def test_serve_multiagent_serves_a_hybrid_arch_on_the_cpu():
+    """``--arch hymba_1_5b``: the hybrid arch the backend once refused
+    serves its apps, decoding tokens and offloading, as in the JAX
+    example."""
+    rep, backend = example("torch_serve_multiagent").main(
+        ["--device", "cpu", "--apps", "2", "--arch", "hymba_1_5b"])
+    assert backend.cfg.arch_type == "hybrid"
+    assert rep["apps_finished"] == 2 and rep["offloads"] >= 1
+    assert rep["decoded_tokens"] > 0
+    assert backend.last_prefill_logits == {}     # per-request prefill
+    assert rep["truncated_prompt_tokens"] == 0
+
+
 @pytest.mark.parametrize("arch", ["hymba_1_5b", "kimi_k2_1t_a32b"])
 def test_arch_zoo_runs_on_the_cpu(arch, capsys):
     example("torch_arch_zoo").main(["--device", "cpu", "--arch", arch])

@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 
 from repro.configs.base import get_smoke_config as jget_smoke
 from repro.models import model as JM
-from repro_torch.configs.base import ModelConfig, get_smoke_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.models import ssm as S
@@ -205,9 +205,3 @@ def test_cpu_prefill_launches_no_kernel_and_other_archs_raise():
     with pytest.raises(NotImplementedError, match="zero state"):
         S.ssm_mixer(cfg, {}, torch.zeros((1, 4, cfg.d_model)),
                     state=torch.zeros(1))
-    # the dense-cache path runs VLM and audio; the paged serving backend
-    # still refuses them
-    from repro_torch.core.backend import TorchBackend
-    for arch in ("llava_next_mistral_7b", "whisper_large_v3"):
-        with pytest.raises(NotImplementedError, match="VLM and audio"):
-            TorchBackend(get_smoke_config(arch), None, None, device="cpu")

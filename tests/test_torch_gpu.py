@@ -33,7 +33,11 @@ Hymba's widths, scalar kernels at ragged shapes, told apart by
 within 1e-3 (Mamba2) and 1.5e-4 (Hymba) of a float64 run; sliding-window
 attention (B15) takes the attention tolerances. The Hymba smoke model runs
 prefill and decode on the card in float32 (full float32 products) and
-matches the CPU to 1e-4.
+matches the CPU to 1e-4. Mamba2-130M's one-element pool rows go through
+an offload -> upload round trip on both host tiers bit for bit against
+the plain versions, and one decode step of the Hymba smoke model on the
+engine path (after its per-request prefill) through the kernels stays
+within four bf16 steps of the largest logit of the plain versions' step.
 """
 import numpy as np
 import pytest
@@ -1142,3 +1146,104 @@ def test_kernel_entries_refuse_to_be_differentiated(dev):
             call(t)
         torch.cuda.synchronize()
         assert ops.launches[name] == 1, name
+
+
+@pytest.mark.parametrize("tier", ["fp16", "int8_host"])
+def test_mamba2_pool_migration_round_trip_equals_plain(dev, tier):
+    """Mamba2-130M's pools (24 layers, no KV heads: rows of one bf16
+    element, 2-byte copies) through an offload -> upload round trip, B5 /
+    B6 on the fp16 tier and B7 / B8 on the int8 tier, on the card and on
+    a CPU twin (the plain versions): host and device pools bit for bit."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kvcache.paged import PagedKVCache
+
+    cfg = get_config("mamba2_130m")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    caches = [PagedKVCache(cfg, 256, 16, host_blocks=32, host_precision=tier,
+                           device=d) for d in (dev, "cpu")]
+    assert tuple(caches[0].k.shape) == (24, 257, 16, 1, 1)
+    for pool in ("k", "v"):
+        x = _rand(gen, tuple(caches[0].k.shape), "bf16", dev)
+        getattr(caches[0], pool).copy_(x)
+        getattr(caches[1], pool).copy_(x.cpu())
+    src, host, dst = [3, 255, 256, 40, 41], [0, 7, 2, 3, 31], [9, 1, 200,
+                                                                 77, 5]
+    ops.reset_launches()
+    for c in caches:
+        c.offload(src, host)
+        c.upload(host, dst)
+    torch.cuda.synchronize()
+    names = (("block_gather_layers", "block_scatter_layers") if tier == "fp16"
+             else ("block_gather_quant_layers",
+                   "block_scatter_dequant_layers"))
+    assert all(ops.launches[n] == 2 for n in names), dict(ops.launches)
+    card, cpu = caches
+    for name in ("k", "v", "host_k", "host_v", "host_scales_k",
+                 "host_scales_v"):
+        a, b = getattr(card, name), getattr(cpu, name)
+        if a is not None:
+            assert torch.equal(a.cpu(), b), name
+    if tier == "fp16":
+        assert torch.equal(card.k[:, dst], card.k[:, src])
+
+
+def test_hymba_smoke_engine_decode_step_kernels_equal_plain(dev,
+                                                           monkeypatch):
+    """The engine path of the Hymba smoke model in bf16 on the card: two
+    requests past its 64-token window prefill one at a time (B15 in the
+    dense-cache prefill, B6 writing the pool) and decode one replayed
+    step; then the next decode step, eagerly through the kernels and
+    through their plain versions on the same pools: logits within four
+    bf16 steps of the largest (2**-5 of it), the argmax on every row whose
+    top two logits are clearly apart."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.costmodel import A100_PCIE
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.graph import AppGraph
+    from repro_torch.core.request import Request
+    from repro_torch.models import graphs as G
+
+    cfg = get_smoke_config("hymba_1_5b")
+    assert cfg.dtype == "bfloat16" and cfg.sliding_window == 64
+    back = TorchBackend(cfg, EngineConfig(mode="baseline", gpu_blocks=32,
+                                          host_blocks=8), A100_PCIE,
+                        device=dev)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i, n in enumerate((100, 90)):
+        g = AppGraph("t")
+        node = g.add_agent("a", "worker", n, decode_len=8)
+        r = Request(rid=f"r{i}", app_id="app", node=node, graph=g,
+                    arrival=0.0, prompt_tokens=[int(t) for t in
+                                                rng.integers(0, 512, n)])
+        r.gpu_blocks_by_device[0] = list(range(8 * i, 8 * i + 8))
+        reqs.append(r)
+    ops.reset_launches()
+    back.decode(reqs)
+    torch.cuda.synchronize()
+    nl = cfg.num_layers
+    assert ops.launches["swa_attention"] == 2 * nl
+    assert ops.launches["ssd_scan"] == 2 * nl
+    assert ops.launches["block_scatter_layers"] == 4
+    assert back.cache_len == {"r0": 101, "r1": 91}
+    inputs, _ = back.decode_inputs(reqs)
+    eager = G.EagerSteps(cfg)
+    pools = [back.cache.k, back.cache.v]
+    snap = [p.clone() for p in pools]
+    got = eager.decode(back.params, *pools, *inputs).float()[:2]
+    for p, s in zip(pools, snap):
+        p.copy_(s)
+    plain = {"rope_kv_token_write": R.rope_kv_token_write_ref,
+             "paged_attention": R.paged_attention_ref}
+    with monkeypatch.context() as m:
+        for k, f in plain.items():
+            m.setattr(ops, k, f)
+        want = eager.decode(back.params, *pools, *inputs).float()[:2]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    tol = 2.0 ** -5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    assert bool((got.argmax(-1) == want.argmax(-1))[clear].all())

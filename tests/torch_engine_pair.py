@@ -82,6 +82,7 @@ def _side(name, base, costmodel, engine, graph, request, temporal,
         name=name, ModelConfig=base.ModelConfig,
         get_smoke_config=base.get_smoke_config, Engine=engine.Engine,
         EngineConfig=engine.EngineConfig, AppGraph=graph.AppGraph,
+        FuncNode=graph.FuncNode,
         Request=request.Request,
         ReqState=request.ReqState, TemporalConfig=temporal.TemporalConfig,
         build_workload=workloads.build_workload,

@@ -17,6 +17,9 @@ JAX backend's jitted steps); on the CPU the steps run eagerly. ``TemporalConfig(
 "int8_host")`` gives the cache an int8 host tier: ``copy_out`` and
 ``offload_blocks`` quantize on the card before the D2H copy, ``copy_in``
 and ``promote_blocks`` dequantize on the card after the H2D copy.
+The decode step and the prefill open ``repro_torch.trace`` spans and
+stamp the start of each request's prefill; the tracer is off unless a
+caller enables it.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.models import graphs as G
 from repro_torch.models import model as M
@@ -87,7 +91,8 @@ def paged_prefill_chunks(step, cache, entries, chunk: int = 32):
     ``tokens[cached:]`` per request, ``chunk`` tokens per step, shapes
     padded to power-of-two buckets; writes ``cache.k/v`` in place.
     Returns the final-suffix-position hidden row per entry (None when the
-    suffix is empty)."""
+    suffix is empty). Each chunk is two tracer spans: ``tc.prefill.inputs``
+    (its padded inputs) and ``tc.prefill.launch`` (the step)."""
     suffix = [toks[cached:] for _, toks, cached in entries]
     last_h = [None] * len(entries)
     s_max = max((len(s) for s in suffix), default=0)
@@ -102,24 +107,26 @@ def paged_prefill_chunks(step, cache, entries, chunk: int = 32):
     C = min(chunk, _bucket(s_max))
     pp = (C - 1) // bs + 2      # max pages a C-token window can straddle
     for c0 in range(0, s_max, C):
-        tok = np.zeros((bb, C), np.int32)
-        qpos = np.full((bb, C), -1, np.int32)
-        wpages = np.full((bb, pp), cache.scratch_block, np.int32)
-        wstart = np.zeros((bb,), np.int32)
-        wcount = np.zeros((bb,), np.int32)
-        for i, (blocks, toks, cached) in enumerate(entries):
-            n = min(len(suffix[i]) - c0, C)
-            if n <= 0:
-                continue
-            tok[i, :n] = suffix[i][c0:c0 + n]
-            qpos[i, :n] = cached + c0 + np.arange(n)
-            wpages[i], wstart[i] = cache.write_window(
-                blocks, cached + c0, n, pp)
-            wcount[i] = n
-        h = step(tok, tables, qpos, wpages, wstart, wcount)
-        for i, s in enumerate(suffix):
-            if c0 <= len(s) - 1 < c0 + C:
-                last_h[i] = h[i, len(s) - 1 - c0].clone()
+        with trace.span("tc.prefill.inputs"):
+            tok = np.zeros((bb, C), np.int32)
+            qpos = np.full((bb, C), -1, np.int32)
+            wpages = np.full((bb, pp), cache.scratch_block, np.int32)
+            wstart = np.zeros((bb,), np.int32)
+            wcount = np.zeros((bb,), np.int32)
+            for i, (blocks, toks, cached) in enumerate(entries):
+                n = min(len(suffix[i]) - c0, C)
+                if n <= 0:
+                    continue
+                tok[i, :n] = suffix[i][c0:c0 + n]
+                qpos[i, :n] = cached + c0 + np.arange(n)
+                wpages[i], wstart[i] = cache.write_window(
+                    blocks, cached + c0, n, pp)
+                wcount[i] = n
+        with trace.span("tc.prefill.launch"):
+            h = step(tok, tables, qpos, wpages, wstart, wcount)
+            for i, s in enumerate(suffix):
+                if c0 <= len(s) - 1 < c0 + C:
+                    last_h[i] = h[i, len(s) - 1 - c0].clone()
     return last_h
 
 
@@ -281,40 +288,52 @@ class TorchBackend:
         through the block tables, only each request's uncached suffix is
         computed and written (see ``paged_prefill_chunks``)."""
         bs = self.block_tokens
-        items = [(r, *self._prefill_tokens(r)) for r in reqs]
-        last_h = paged_prefill_chunks(
-            functools.partial(self.steps.prefill, self.params, self.cache.k,
-                              self.cache.v), self.cache,
-            [(r.gpu_blocks, toks, cached) for r, toks, cached in items],
-            chunk=self.prefill_chunk)
-        rows = [i for i, x in enumerate(last_h) if x is not None]
-        if rows:
-            # padded to the batch bucket, as the JAX backend does
-            stack = [last_h[i] for i in rows]
-            stack += [stack[0]] * (_bucket(len(items)) - len(rows))
-            logits = self.steps.head(self.params, torch.stack(stack))
-            arr = logits[:len(rows)].float().cpu().numpy()
-            for j, i in enumerate(rows):
-                self.last_prefill_logits[items[i][0].rid] = arr[j]
-        for r, toks, _ in items:
-            n_blocks = -(-len(toks) // bs) if toks else 0
-            self._prefill_sig[r.rid] = tuple(r.gpu_blocks[:n_blocks])
-            self.cache_len[r.rid] = len(toks)
+        for r in reqs:
+            trace.stamp(r.rid, "prefill_start")
+        with trace.span("tc.prefill", reqs=len(reqs)) as sp:
+            items = [(r, *self._prefill_tokens(r)) for r in reqs]
+            suffix = [len(toks) - cached for _, toks, cached in items]
+            sp.set(tokens=sum(suffix),
+                   chunks=-(-max(suffix) // self.prefill_chunk))
+            last_h = paged_prefill_chunks(
+                functools.partial(self.steps.prefill, self.params,
+                                  self.cache.k, self.cache.v), self.cache,
+                [(r.gpu_blocks, toks, cached) for r, toks, cached in items],
+                chunk=self.prefill_chunk)
+            rows = [i for i, x in enumerate(last_h) if x is not None]
+            if rows:
+                # padded to the batch bucket, as the JAX backend does
+                stack = [last_h[i] for i in rows]
+                stack += [stack[0]] * (_bucket(len(items)) - len(rows))
+                with trace.span("tc.prefill.head"):
+                    logits = self.steps.head(self.params,
+                                             torch.stack(stack))
+                with trace.span("tc.prefill.readback"):
+                    arr = logits[:len(rows)].float().cpu().numpy()
+                for j, i in enumerate(rows):
+                    self.last_prefill_logits[items[i][0].rid] = arr[j]
+            for r, toks, _ in items:
+                n_blocks = -(-len(toks) // bs) if toks else 0
+                self._prefill_sig[r.rid] = tuple(r.gpu_blocks[:n_blocks])
+                self.cache_len[r.rid] = len(toks)
 
     def _prefill_one(self, req):
         """Dense-cache ``prefill`` of one request, its K/V written into the
         paged pool where the arch has one. As in the JAX backend,
         ``cache_len`` counts the text tokens only, and no prefill logits
         are kept."""
-        toks, _ = self._prefill_tokens(req)
-        _, cache = M.prefill(self.cfg, self.params, self.prefill_batch(toks))
-        if "k" in cache:
-            # (L, 1, S, Hkv, D) -> the paged pool
-            self.cache.write_prefill(req.gpu_blocks, cache["k"][:, 0],
-                                     cache["v"][:, 0])
-        n_blocks = -(-len(toks) // self.block_tokens)
-        self._prefill_sig[req.rid] = tuple(req.gpu_blocks[:n_blocks])
-        self.cache_len[req.rid] = len(toks)
+        trace.stamp(req.rid, "prefill_start")
+        with trace.span("tc.prefill_one"):
+            toks, _ = self._prefill_tokens(req)
+            _, cache = M.prefill(self.cfg, self.params,
+                                 self.prefill_batch(toks))
+            if "k" in cache:
+                # (L, 1, S, Hkv, D) -> the paged pool
+                self.cache.write_prefill(req.gpu_blocks, cache["k"][:, 0],
+                                         cache["v"][:, 0])
+            n_blocks = -(-len(toks) // self.block_tokens)
+            self._prefill_sig[req.rid] = tuple(req.gpu_blocks[:n_blocks])
+            self.cache_len[req.rid] = len(toks)
 
     def prefill_batch(self, toks: List[int]) -> dict:
         """The dense-cache ``prefill`` batch of one request's tokens: zero
@@ -338,16 +357,22 @@ class TorchBackend:
     def _decode_batch(self, reqs):
         if self.cfg.arch_type in ("ssm", "audio"):
             return      # no paged decode state: no token, as in JAX
-        inputs, wrote = self.decode_inputs(reqs)
-        logits = self.steps.decode(self.params, self.cache.k, self.cache.v,
-                                   *inputs)
-        # read before the next step: a replay overwrites ``logits``
-        nxt = torch.argmax(logits[:len(reqs)], dim=-1).cpu().numpy()
-        positions = inputs[2]
-        for i, r in enumerate(reqs):
-            self.generated.setdefault(r.rid, []).append(int(nxt[i]))
-            if wrote[i]:
-                self.cache_len[r.rid] = int(positions[i]) + 1
+        with trace.span("tc.decode", rows=len(reqs),
+                        bucket=_bucket(len(reqs))):
+            with trace.span("tc.decode.inputs"):
+                inputs, wrote = self.decode_inputs(reqs)
+            with trace.span("tc.decode.launch"):
+                logits = self.steps.decode(self.params, self.cache.k,
+                                           self.cache.v, *inputs)
+            # read before the next step: a replay overwrites ``logits``
+            with trace.span("tc.decode.readback"):
+                nxt = torch.argmax(logits[:len(reqs)], dim=-1).cpu().numpy()
+            with trace.span("tc.decode.commit"):
+                positions = inputs[2]
+                for i, r in enumerate(reqs):
+                    self.generated.setdefault(r.rid, []).append(int(nxt[i]))
+                    if wrote[i]:
+                        self.cache_len[r.rid] = int(positions[i]) + 1
 
     def decode_inputs(self, reqs):
         """The padded int32 inputs (numpy) of the decode step of ``reqs``

@@ -14,7 +14,8 @@ Every method writes the pools **in place**. On a CUDA device the host pool
 is pinned CPU memory: an offload gathers the blocks on the card, copies
 them into pinned staging and waits for that copy to finish before it fills
 the host pool; an upload stages host blocks in pinned memory, copies them
-to the card and scatters them into the pools.
+to the card and scatters them into the pools. Each of these phases is a
+``repro_torch.trace`` span (``tc.kv.offload.*``, ``tc.kv.upload.*``).
 
 ``host_precision="int8_host"`` keeps the host pool as int8 payload plus
 float32 scales per (layer, block, kv head), half the fp16 bytes on every
@@ -30,6 +31,7 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import ops
 
 
@@ -186,27 +188,32 @@ class PagedKVCache:
         self._require_host("offload()")
         idx = self._ids(gpu_blocks)
         hidx = torch.as_tensor(np.asarray(host_blocks, np.int64))
-        if self.host_precision == "int8_host":
-            (kq, ks), (vq, vs) = (ops.block_gather_quant_layers(pool, idx)
-                                  for pool in (self.k, self.v))
-            staged = [kq, vq, ks, vs]
-            dests = [self.host_k, self.host_v, self.host_scales_k,
-                     self.host_scales_v]
-        else:
-            staged = [ops.block_gather_layers(pool, idx)
-                      for pool in (self.k, self.v)]
-            dests = [self.host_k, self.host_v]
+        with trace.span("tc.kv.offload.gather"):
+            if self.host_precision == "int8_host":
+                (kq, ks), (vq, vs) = (
+                    ops.block_gather_quant_layers(pool, idx)
+                    for pool in (self.k, self.v))
+                staged = [kq, vq, ks, vs]
+                dests = [self.host_k, self.host_v, self.host_scales_k,
+                         self.host_scales_v]
+            else:
+                staged = [ops.block_gather_layers(pool, idx)
+                          for pool in (self.k, self.v)]
+                dests = [self.host_k, self.host_v]
         if self.device.type == "cuda":
-            hosts = []
-            for s in staged:
-                h = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
-                h.copy_(s, non_blocking=True)
-                hosts.append(h)
+            with trace.span("tc.kv.offload.pin"):
+                hosts = []
+                for s in staged:
+                    h = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
+                    h.copy_(s, non_blocking=True)
+                    hosts.append(h)
             # the D2H copies must land before the host pool reads them
-            torch.cuda.current_stream(self.device).synchronize()
+            with trace.span("tc.kv.offload.wait"):
+                torch.cuda.current_stream(self.device).synchronize()
             staged = hosts
-        for dest, s in zip(dests, staged):
-            dest.index_copy_(1, hidx, s)
+        with trace.span("tc.kv.offload.host_copy"):
+            for dest, s in zip(dests, staged):
+                dest.index_copy_(1, hidx, s)
 
     def upload(self, host_blocks: List[int], gpu_blocks: List[int]):
         """H2D: read host pages, scatter them into (possibly new) device
@@ -217,19 +224,24 @@ class PagedKVCache:
         idx = self._ids(gpu_blocks)
         hidx = torch.as_tensor(np.asarray(host_blocks, np.int64))
 
-        def staged(host):
-            shape = (host.shape[0], len(host_blocks)) + tuple(host.shape[2:])
-            stage = torch.empty(shape, dtype=host.dtype,
-                                pin_memory=self.device.type == "cuda")
-            torch.index_select(host, 1, hidx, out=stage)
-            return stage.to(self.device, non_blocking=True)
+        quant = self.host_precision == "int8_host"
 
-        if self.host_precision == "int8_host":
-            for pool, host, scales in (
-                    (self.k, self.host_k, self.host_scales_k),
-                    (self.v, self.host_v, self.host_scales_v)):
-                ops.block_scatter_dequant_layers(pool, idx, staged(host),
-                                                 staged(scales))
-            return
-        for pool, host in ((self.k, self.host_k), (self.v, self.host_v)):
-            ops.block_scatter_layers(pool, idx, staged(host))
+        def stage(host):
+            shape = (host.shape[0], len(host_blocks)) + tuple(host.shape[2:])
+            out = torch.empty(shape, dtype=host.dtype,
+                              pin_memory=self.device.type == "cuda")
+            torch.index_select(host, 1, hidx, out=out)
+            return out
+
+        # one pool at a time, so the device holds one pool's staging
+        for pool, host, scales in (
+                (self.k, self.host_k, self.host_scales_k),
+                (self.v, self.host_v, self.host_scales_v)):
+            with trace.span("tc.kv.upload.stage"):
+                pinned = [stage(host)] + ([stage(scales)] if quant else [])
+            with trace.span("tc.kv.upload.scatter"):
+                dev = [p.to(self.device, non_blocking=True) for p in pinned]
+                if quant:
+                    ops.block_scatter_dequant_layers(pool, idx, *dev)
+                else:
+                    ops.block_scatter_layers(pool, idx, *dev)

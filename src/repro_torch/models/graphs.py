@@ -36,6 +36,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
 
@@ -192,11 +193,13 @@ class StepGraphs:
     def _load(self, g, inputs):
         """Copy a call's inputs into the graph's static inputs: device rows
         directly, numpy arrays through the pinned host buffer in one copy
-        (after the previous copy out of that buffer has landed)."""
+        (after the previous copy out of that buffer has landed: the
+        host's wait is the tracer's ``tc.graph.wait``)."""
         if g.host is None:
             g.inputs[0].copy_(inputs[0])
             return
-        g.copied.synchronize()
+        with trace.span("tc.graph.wait"):
+            g.copied.synchronize()
         for view, a in zip(g.host_views, inputs):
             np.copyto(view, a, casting="safe")
         g.dev.copy_(g.host, non_blocking=True)

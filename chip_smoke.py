@@ -42,7 +42,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    and the fused writes are held and timed again at each serve's own
    shape (``serve_shape_cases``: 256-token contexts through 16-page
    tables, a 32-token chunk), at Qwen2.5-14B's heads (variant ``ctx256``)
-   and at Kimi-K2's (variant ``d112``: H 64, Hkv 8, D 112); B14
+   and at Kimi-K2's (variant ``d112``: H 64, Hkv 8, D 112), and B4 at
+   one sequence's 256- and 512-token chunks at the end of a 4096-token
+   context (variants ``c256``, the dense prefill's longest replay, and
+   ``c512``); B14
    must take its tensor-core route at both shapes (its route count), its
    y and final state are compared with its plain version (``TOL_SSD``)
    and, with the plain version's, against the plain version run in
@@ -986,6 +989,52 @@ def serve_shape_cases(dt: str, arch: str, variant: str):
     return cases
 
 
+def long_prefill_cases(dt: str):
+    """B4 at one sequence of Qwen2.5-14B's heads: a 256-token chunk
+    (variant ``c256``, the dense archs' longest prefill replay) and a
+    512-token one (``c512``) at the end of a 4096-token context through a
+    256-page table; held and timed as its main-path case is (bytes and
+    operations counted the same way)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    td = torch.bfloat16 if dt == "bf16" else torch.float32
+    es = torch.finfo(td).bits // 8
+    ctx = 4096
+    p = ctx // BS
+    kp, vp = (torch.randn((p + 1, BS, HKV, D), generator=gen,
+                          device=dev).to(td) for _ in "kv")
+    perm = np.random.default_rng(3).permutation(p)[None]
+    tables = torch.as_tensor(perm.astype(np.int32)).to(dev)
+    kd, vd = (x[tables.long()].reshape(1, ctx, HKV, D).transpose(1, 2)
+              .contiguous() for x in (kp, vp))
+    cases = []
+    for c in (256, 512):
+        qpos = (ctx - c + np.arange(c))[None]
+        qp = torch.as_tensor(qpos.astype(np.int32)).to(dev)
+        q = torch.randn((1, c, H, D), generator=gen, device=dev).to(td)
+        mask = (torch.arange(ctx, device=dev)[None, None, :]
+                <= qp.long()[:, :, None])[:, None]
+        cases.append(dict(
+            name="paged_prefill_attention", kind="attn", variant=f"c{c}",
+            targets=(), shape=f"q (1, {c}, {H}, {D}), {p}-page table, "
+                              f"{ctx}-token context",
+            kernel=lambda q=q, qp=qp: ops.paged_prefill_attention(
+                q, kp, vp, tables, qp),
+            plain=lambda q=q, qp=qp: R.paged_prefill_attention_ref(
+                q, kp, vp, tables, qp),
+            library=sdpa(q.transpose(1, 2), kd, vd, mask),
+            library_call="scaled_dot_product_attention over pre-gathered "
+                         "K/V",
+            nbytes=2 * c * H * D * es + 2 * ctx * HKV * D * es + 4 * (c + p),
+            flops=4.0 * H * D * int((qpos + 1).sum())))
+    return cases
+
+
 def family_kernel_cases(dt: str):
     """B14 at Mamba2-130M's and at Hymba-1.5B's prefill shapes and B15 at
     Hymba-1.5B's and at LLaVA-NeXT-Mistral-7B's (variant ``llava``; heads
@@ -1266,6 +1315,7 @@ def kernel_phase():
         for case in (kernel_cases(dt)
                      + serve_shape_cases(dt, "qwen2_5_14b_serving", "ctx256")
                      + serve_shape_cases(dt, "kimi_k2_1t_a32b", "d112")
+                     + long_prefill_cases(dt)
                      + family_kernel_cases(dt)):
             before = ops.launches[case["name"]]
             err = check_case(case, dt)
@@ -3607,8 +3657,8 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             library_call=r["library_call"]))
-        for extra in ("shape", "ctx256", "d112", "m1", "m1536", "llava",
-                      "splits",
+        for extra in ("shape", "ctx256", "d112", "c256", "c512", "m1",
+                      "m1536", "llava", "splits",
                       "vs_f64_f32", "vs_f64_bf16", "vs_plain_f32",
                       "vs_plain_bf16",
                       "launch_ms_f32", "launch_ms_bf16", "library_graph_ms",

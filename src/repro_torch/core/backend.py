@@ -8,8 +8,10 @@ against a real paged KV cache, on the card through the CUDA kernels of
 ``repro_torch.kernels``, and moves offloaded KV to pinned host memory and
 back. It is the counterpart of ``repro.core.backend.JaxBackend`` and takes
 every arch it takes, with its semantics: dense and MoE archs without a
-sliding window prefill in batched paged chunks, every other arch one
-request at a time through the dense-cache ``prefill``, whose K/V is
+sliding window prefill in batched paged chunks (dense archs in replays of
+up to ``PREFILL_TOKENS`` positions of the rows whose suffix is left, MoE
+archs in the JAX backend's lock step), every other arch one request at a
+time through the dense-cache ``prefill``, whose K/V is
 written into the paged pool; SSM and audio archs decode no token on this
 path. On the card each padded step
 shape runs as one CUDA graph (``models.graphs.StepGraphs``, the counterpart of the
@@ -23,7 +25,6 @@ caller enables it.
 """
 from __future__ import annotations
 
-import functools
 import warnings
 from typing import Dict, List, Optional, Tuple
 
@@ -75,59 +76,91 @@ def _bucket(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
 
-def paged_prefill_chunks(step, cache, entries, chunk: int = 32):
+# suffix positions one replay of the dense archs' prefill holds at most
+PREFILL_TOKENS = 256
+# the lock-step chunk of the MoE archs' prefill, and the least chunk of a
+# dense replay
+PREFILL_CHUNK = 32
+
+
+def paged_prefill_chunks(step, cache, entries, chunk: int = PREFILL_CHUNK,
+                         budget: Optional[int] = None):
     """Chunked, bucketed, batched suffix-only paged prefill.
 
-    ``step(tokens, tables, q_pos, wpages, wstart, wcount)`` runs one chunk
-    from int32 numpy inputs and returns its hidden states (the prefill of
-    ``models.graphs.EagerSteps`` or ``StepGraphs`` with the params and
-    pools bound); a replayed graph returns the same static output every
-    call, so the rows kept here are copies.
+    ``step(tokens, tables, q_pos, wpages, wstart, wcount)`` runs one
+    replay from int32 numpy inputs and returns its hidden states (the
+    prefill of ``models.graphs.EagerSteps`` or ``StepGraphs`` with the
+    params and pools bound); a replayed graph returns the same static
+    output every call, so the rows kept here are copies.
 
     ``entries``: list of (blocks, tokens, cached) per request: the block
     table, the full target cache-token list, and the leading token count
     already resident in the pool (shared prefix; token-granular, so the
     suffix may start mid-block). Computes and writes only
-    ``tokens[cached:]`` per request, ``chunk`` tokens per step, shapes
-    padded to power-of-two buckets; writes ``cache.k/v`` in place.
+    ``tokens[cached:]`` per request, shapes padded to power-of-two
+    buckets; writes ``cache.k/v`` in place. Two plans:
+
+    * ``budget=None``, lock step (the JAX backend's plan): every replay
+      runs the call's whole padded batch ``chunk`` tokens on, rows whose
+      suffix has ended masked by ``q_pos = -1``; C = min(chunk, bucket of
+      the longest suffix).
+    * ``budget=T``: each replay carries only the rows whose suffix still
+      has tokens, in a batch bucket ``bb`` of their own, with the subset's
+      block tables: C = max(chunk, T // bb) positions a row, at most
+      ``max(T, bb * chunk)`` in all, while a row has more than ``chunk``
+      tokens left, then the lock step's C. Two sizes of C a batch bucket
+      keep the CUDA graphs few (each holds its own pool of temporaries);
+      below the GEMMs' ridge point a replay's padded positions cost little
+      time.
+
     Returns the final-suffix-position hidden row per entry (None when the
-    suffix is empty). Each chunk is two tracer spans: ``tc.prefill.inputs``
-    (its padded inputs) and ``tc.prefill.launch`` (the step)."""
+    suffix is empty). Each replay is two tracer spans:
+    ``tc.prefill.inputs`` (its padded inputs) and ``tc.prefill.launch``
+    (the step)."""
     suffix = [toks[cached:] for _, toks, cached in entries]
     last_h = [None] * len(entries)
-    s_max = max((len(s) for s in suffix), default=0)
-    if s_max == 0:
-        return last_h
+    done = [0] * len(entries)
     bs = cache.block_size
-    bb = _bucket(len(entries))
-    pb = _bucket(max(len(blocks) for blocks, _, _ in entries))
-    tables = np.zeros((bb, pb), np.int32)
-    for i, (blocks, _, _) in enumerate(entries):
-        tables[i, :len(blocks)] = blocks
-    C = min(chunk, _bucket(s_max))
-    pp = (C - 1) // bs + 2      # max pages a C-token window can straddle
-    for c0 in range(0, s_max, C):
+    lockstep = min(chunk, _bucket(max((len(s) for s in suffix), default=0)))
+    while True:
+        left = [len(s) - d for s, d in zip(suffix, done)]
+        live = [i for i, n in enumerate(left) if n > 0]
+        if not live:
+            return last_h
+        if budget is None:
+            rows, C = range(len(entries)), lockstep
+        else:
+            rows = live
+            C = (max(chunk, budget // _bucket(len(rows)))
+                 if max(left[i] for i in rows) > chunk else lockstep)
+        bb = _bucket(len(rows))
+        pb = _bucket(max(len(entries[i][0]) for i in rows))
+        pp = (C - 1) // bs + 2      # max pages a C-token window can straddle
         with trace.span("tc.prefill.inputs"):
             tok = np.zeros((bb, C), np.int32)
+            tables = np.zeros((bb, pb), np.int32)
             qpos = np.full((bb, C), -1, np.int32)
             wpages = np.full((bb, pp), cache.scratch_block, np.int32)
             wstart = np.zeros((bb,), np.int32)
             wcount = np.zeros((bb,), np.int32)
-            for i, (blocks, toks, cached) in enumerate(entries):
-                n = min(len(suffix[i]) - c0, C)
-                if n <= 0:
+            for j, i in enumerate(rows):
+                blocks, _, cached = entries[i]
+                tables[j, :len(blocks)] = blocks
+                n = min(left[i], C)
+                if n == 0:
                     continue
-                tok[i, :n] = suffix[i][c0:c0 + n]
-                qpos[i, :n] = cached + c0 + np.arange(n)
-                wpages[i], wstart[i] = cache.write_window(
-                    blocks, cached + c0, n, pp)
-                wcount[i] = n
+                p0 = cached + done[i]
+                tok[j, :n] = suffix[i][done[i]:done[i] + n]
+                qpos[j, :n] = p0 + np.arange(n)
+                wpages[j], wstart[j] = cache.write_window(blocks, p0, n, pp)
+                wcount[j] = n
         with trace.span("tc.prefill.launch"):
             h = step(tok, tables, qpos, wpages, wstart, wcount)
-            for i, s in enumerate(suffix):
-                if c0 <= len(s) - 1 < c0 + C:
-                    last_h[i] = h[i, len(s) - 1 - c0].clone()
-    return last_h
+            for j, i in enumerate(rows):
+                n = min(left[i], C)
+                if 0 < n == left[i]:            # the suffix ends here
+                    last_h[i] = h[j, n - 1].clone()
+                done[i] += n
 
 
 class TorchBackend:
@@ -177,8 +210,6 @@ class TorchBackend:
         self.truncated_prompt_tokens = 0
         # final-position prefill logits per request (inspection / tests)
         self.last_prefill_logits: Dict[str, np.ndarray] = {}
-        # suffix tokens per prefill step (bucketed)
-        self.prefill_chunk = 32
         self.steps = (G.StepGraphs(cfg, device) if device.type == "cuda"
                       else G.EagerSteps(cfg))
         # the batched paged prefill serves the archs whose layer body the
@@ -186,6 +217,15 @@ class TorchBackend:
         # every other arch prefills one request at a time
         self.batched_prefill = (cfg.arch_type in ("dense", "moe")
                                 and cfg.sliding_window is None)
+        # dense archs prefill in replays of up to PREFILL_TOKENS positions
+        # of the rows left; MoE archs keep the JAX backend's lock step,
+        # since an expert's capacity counts the replay's padded tokens, so
+        # another shape would drop other entries
+        self.prefill_budget = (PREFILL_TOKENS if cfg.arch_type == "dense"
+                               else None)
+        # batched prefill replays, the suffix tokens they computed and
+        # their positions, padding included
+        self.prefill_replays = self.prefill_tokens = self.prefill_slots = 0
 
     # -- engine hooks ----------------------------------------------------------
     def decode(self, reqs):
@@ -286,20 +326,23 @@ class TorchBackend:
     def _prefill_batch(self, reqs):
         """Batched chunked suffix-only prefill: cached prefix KV is read
         through the block tables, only each request's uncached suffix is
-        computed and written (see ``paged_prefill_chunks``)."""
+        computed and written (see ``paged_prefill_chunks``), in replays of
+        up to ``PREFILL_TOKENS`` positions for dense archs and in the
+        JAX backend's 32-token lock step for MoE archs."""
         bs = self.block_tokens
         for r in reqs:
             trace.stamp(r.rid, "prefill_start")
         with trace.span("tc.prefill", reqs=len(reqs)) as sp:
             items = [(r, *self._prefill_tokens(r)) for r in reqs]
-            suffix = [len(toks) - cached for _, toks, cached in items]
-            sp.set(tokens=sum(suffix),
-                   chunks=-(-max(suffix) // self.prefill_chunk))
+            sp.set(tokens=sum(len(toks) - cached
+                              for _, toks, cached in items))
+            replays, slots = self.prefill_replays, self.prefill_slots
             last_h = paged_prefill_chunks(
-                functools.partial(self.steps.prefill, self.params,
-                                  self.cache.k, self.cache.v), self.cache,
+                self._prefill_step, self.cache,
                 [(r.gpu_blocks, toks, cached) for r, toks, cached in items],
-                chunk=self.prefill_chunk)
+                budget=self.prefill_budget)
+            sp.set(replays=self.prefill_replays - replays,
+                   slots=self.prefill_slots - slots)
             rows = [i for i, x in enumerate(last_h) if x is not None]
             if rows:
                 # padded to the batch bucket, as the JAX backend does
@@ -316,6 +359,15 @@ class TorchBackend:
                 n_blocks = -(-len(toks) // bs) if toks else 0
                 self._prefill_sig[r.rid] = tuple(r.gpu_blocks[:n_blocks])
                 self.cache_len[r.rid] = len(toks)
+
+    def _prefill_step(self, tokens, tables, q_pos, wpages, wstart, wcount):
+        """One prefill replay of the batched prefill, counted."""
+        self.prefill_replays += 1
+        self.prefill_slots += tokens.size
+        self.prefill_tokens += int(wcount.sum())
+        return self.steps.prefill(self.params, self.cache.k, self.cache.v,
+                                  tokens, tables, q_pos, wpages, wstart,
+                                  wcount)
 
     def _prefill_one(self, req):
         """Dense-cache ``prefill`` of one request, its K/V written into the

@@ -165,6 +165,7 @@ def test_paged_attention_quant_bf16_tiles(dev, h, hkv, d, bs, p, lens,
 @pytest.mark.parametrize("b,c,h,hkv,d,bs,p", [
     (8, 32, 40, 8, 128, 16, 64),  # Qwen2.5-14B prefill chunk
     (2, 12, 10, 2, 32, 8, 6),
+    (2, 512, 40, 8, 128, 16, 256),  # its longest replay, 4k-token tables
 ])
 def test_paged_prefill_attention(dev, dt, b, c, h, hkv, d, bs, p):
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -198,6 +199,7 @@ def test_paged_prefill_attention(dev, dt, b, c, h, hkv, d, bs, p):
     (2, 12, 10, 2, 128, 32, 5, (63, 159)),
     (3, 8, 10, 2, 64, 16, 1, (15, 7, -1)),
     (2, 32, 40, 8, 128, 16, 16, (255, 255)),
+    (1, 512, 40, 8, 128, 16, 256, (4095,)),
 ])
 def test_paged_prefill_attention_bf16_tiles(dev, b, c, h, hkv, d, bs, p,
                                             ends):
@@ -390,6 +392,7 @@ def test_rope_kv_token_write(dev, dt, b, h, hkv, d, theta):
 @pytest.mark.parametrize("b,c,h,hkv,d,bs,theta", [
     (8, 32, 40, 8, 128, 16, 1e6),    # Qwen2.5-14B prefill chunk
     (3, 10, 8, 2, 20, 4, 1e4),       # D/2 = 10: the scalar path
+    (2, 512, 40, 8, 128, 16, 1e6),   # its longest replay
 ])
 def test_rope_kv_chunk_write(dev, dt, b, c, h, hkv, d, bs, theta):
     """The prefill layer's fused RoPE and write against its plain version:

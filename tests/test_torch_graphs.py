@@ -5,11 +5,17 @@ head, the counterpart of the JAX package's jitted steps.
 On the CPU (where CUDA graphs do not exist and the backend runs its steps
 eagerly):
 * the bucket keys the graphs use, read off the backend's padded inputs,
-  equal the shapes the JAX backend compiles its jitted steps for, call by
-  call, over the engine trace of ``test_torch_backend.py``;
+  over the engine trace of ``test_torch_backend.py``: for an MoE arch
+  every key equals the shape the JAX backend compiles its jitted steps
+  for, call by call; for a dense arch the decode and head keys do, and
+  each prefill call's replays follow the dense plan (replays of up to
+  ``PREFILL_TOKENS`` positions of the rows whose suffix is left) and
+  compute the positions the JAX backend's 32-token chunks compute;
+* the dense plan and the lock step give the same K/V and last hidden
+  rows on a mixed batch, in 10 replays against 63;
 * ``paged_prefill_chunks`` keeps copies of the rows it returns, so a step
   that hands back one reused output buffer (as a replay does) gives the
-  eager step's rows;
+  eager step's rows, under either plan;
 * ``TorchBackend(device="cpu")`` builds no graph, and the launch counts
   of a capture add up once per replay.
 
@@ -27,6 +33,8 @@ Marked ``gpu`` (skipped without a CUDA device):
 * replayed decode, prefill and head outputs, and the K/V they write, equal
   the eager step's bit for bit across three buckets each, and again after
   an offload and an upload rewrote pool blocks between replays;
+* so do the dense plan's buckets: a (1, 256) replay and the compacted
+  replays of a mixed batch;
 * so do a small MoE model's decode and prefill replays, in two buckets
   each;
 * after N replays ``ops.launches`` holds N times the capture's counts;
@@ -50,7 +58,9 @@ from repro.core.engine import EngineConfig as JEngineConfig
 from repro.core.temporal import TemporalConfig as JTemporalConfig
 from repro.data.workloads import build_workload as j_build_workload
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.core.backend import TorchBackend, paged_prefill_chunks
+from repro_torch.core.backend import (PREFILL_CHUNK, PREFILL_TOKENS,
+                                      TorchBackend, _bucket,
+                                      paged_prefill_chunks)
 from repro_torch.core.costmodel import A100_PCIE
 from repro_torch.core.engine import Engine, EngineConfig
 from repro_torch.core.temporal import TemporalConfig
@@ -65,6 +75,8 @@ TINY = dict(name="tiny-f32", arch_type="dense", num_layers=2, d_model=64,
             num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=128,
             dtype="float32")
 CFG = ModelConfig(**TINY)
+TINY_MOE = dict(TINY, name="tiny-moe-f32", arch_type="moe", num_experts=4,
+                experts_per_token=2, moe_capacity_factor=1.25)
 BT = A100_PCIE.block_tokens   # 16
 
 
@@ -96,20 +108,24 @@ def _engine_cfg(mk, temporal, kv_precision):
 # CPU
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kv_precision", ["fp16", "int8_host"])
-def test_bucket_keys_match_the_jax_backends_compiled_shapes(
-        kv_precision, monkeypatch):
-    jax_keys = []
+def _served_steps(tiny, kv_precision, monkeypatch):
+    """The step calls of one engine trace (two shrunk deep_research apps,
+    offloads forced) run by ``JaxBackend`` and by ``TorchBackend`` on the
+    same weights: two lists of (bucket key, the prefill's q_pos or None),
+    the JAX backend's first."""
+    jax_calls = []
     for name, key in (
             ("paged_decode_step", lambda a: ("decode", *a[5].shape)),
             ("paged_prefill_step", lambda a: (
                 "prefill", *a[4].shape, a[5].shape[1], a[7].shape[1])),
             ("head_logits", lambda a: ("head", a[2].shape[0]))):
         def record(*args, _fn=getattr(JM, name), _key=key):
-            jax_keys.append(_key(args))
+            k = _key(args)
+            jax_calls.append((k, np.asarray(args[6]) if k[0] == "prefill"
+                              else None))
             return _fn(*args)
         monkeypatch.setattr(JM, name, record)
-    jcfg = JModelConfig(**TINY)
+    jcfg = JModelConfig(**tiny)
     jecfg = _engine_cfg(JEngineConfig, JTemporalConfig, kv_precision)
     jback = JaxBackend(jcfg, jecfg, J_A100)
     jeng = JEngine(jecfg, J_A100, backend=jback)
@@ -118,31 +134,103 @@ def test_bucket_keys_match_the_jax_backends_compiled_shapes(
         jeng.submit_app(g, t)
     jeng.run(max_time=5000)
 
-    keys = []
+    calls = []
 
     class Recording(G.EagerSteps):
         def _run(self, kind, params, pools, arrays):
-            keys.append((kind, *G.bucket_key(kind, arrays)))
+            calls.append(((kind, *G.bucket_key(kind, arrays)),
+                          arrays[2].copy() if kind == "prefill" else None))
             return super()._run(kind, params, pools, arrays)
 
         def head(self, params, h):
-            keys.append(("head", *G.bucket_key("head", (h,))))
+            calls.append((("head", *G.bucket_key("head", (h,))), None))
             return super().head(params, h)
 
+    cfg = ModelConfig(**tiny)
     params = M.load_jax_params(jax.tree.map(np.asarray, jback.params),
                                "cpu")
     ecfg = _engine_cfg(EngineConfig, TemporalConfig, kv_precision)
-    back = TorchBackend(CFG, ecfg, A100_PCIE, device="cpu", params=params)
-    back.steps = Recording(CFG)
+    back = TorchBackend(cfg, ecfg, A100_PCIE, device="cpu", params=params)
+    back.steps = Recording(cfg)
     eng = Engine(ecfg, A100_PCIE, backend=back)
     for t, g in _shrink(build_workload("deep_research", qps=2.0, n_apps=2,
                                        seed=0)):
         eng.submit_app(g, t)
     eng.run(max_time=5000)
-
+    keys = [k for k, _ in calls]
     assert {k[0] for k in keys} == {"decode", "prefill", "head"}
     assert len({k for k in keys if k[0] == "decode"}) >= 2
-    assert keys == jax_keys
+    return jax_calls, calls
+
+
+def _prefill_calls(calls):
+    """The (key, q_pos) replays of each batched prefill call: the runs of
+    consecutive prefill steps."""
+    runs, prev = [], None
+    for key, qpos in calls:
+        if key[0] == "prefill":
+            if prev != "prefill":
+                runs.append([])
+            runs[-1].append((key, qpos))
+        prev = key[0]
+    return runs
+
+
+def _check_plan(key, qpos):
+    """One replay of the dense plan: only rows with suffix left, at the
+    front of the batch bucket; C = max(32, T // bb) while a row has more
+    than 32 tokens left, else at most 32, so at most T positions for
+    bb <= T / 32."""
+    _, bb, c, _, pp = key
+    counts = (qpos >= 0).sum(axis=1)
+    rows = int((counts > 0).sum())
+    assert (counts[:rows] > 0).all() and not counts[rows:].any(), key
+    for row, n in zip(qpos, counts):
+        assert (row[:n] >= 0).all() and (row[n:] < 0).all(), key
+    assert bb == _bucket(rows), key
+    cap = max(PREFILL_CHUNK, PREFILL_TOKENS // bb)
+    if counts.max() > PREFILL_CHUNK:
+        assert c == cap, key
+    else:
+        assert counts.max() <= c <= PREFILL_CHUNK, key
+    assert bb * c <= PREFILL_TOKENS or c == PREFILL_CHUNK, key
+    assert pp == (c - 1) // BT + 2, key
+
+
+@pytest.mark.parametrize("kv_precision", ["fp16", "int8_host"])
+def test_bucket_keys_match_the_jax_backends_compiled_shapes(
+        kv_precision, monkeypatch):
+    """A dense arch: decode and head keys equal the JAX backend's call for
+    call; its prefill departs from the JAX backend's 32-token lock step
+    on purpose, so each prefill call's replays follow the dense plan and
+    compute the positions the JAX backend's chunks compute, in fewer
+    replays."""
+    jax_calls, calls = _served_steps(TINY, kv_precision, monkeypatch)
+    assert [k for k, _ in calls if k[0] != "prefill"] == \
+        [k for k, _ in jax_calls if k[0] != "prefill"]
+    want, got = _prefill_calls(jax_calls), _prefill_calls(calls)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for key, qpos in g:
+            _check_plan(key, qpos)
+        assert np.array_equal(
+            np.sort(np.concatenate([q[q >= 0] for _, q in g])),
+            np.sort(np.concatenate([q[q >= 0] for _, q in w])))
+        assert len(g) <= len(w)
+    assert sum(map(len, got)) < sum(map(len, want))
+
+
+@pytest.mark.parametrize("kv_precision", ["fp16", "int8_host"])
+def test_moe_bucket_keys_match_the_jax_backends_compiled_shapes(
+        kv_precision, monkeypatch):
+    """An MoE arch keeps the JAX backend's 32-token lock step: every key,
+    prefill included, and every prefill's q_pos equal the JAX backend's
+    call for call."""
+    jax_calls, calls = _served_steps(TINY_MOE, kv_precision, monkeypatch)
+    assert [k for k, _ in calls] == [k for k, _ in jax_calls]
+    for (_, q), (_, w) in zip(calls, jax_calls):
+        assert (q is None) == (w is None)
+        assert q is None or np.array_equal(q, w)
 
 
 def test_prefill_chunks_copy_rows_out_of_a_reused_output():
@@ -156,26 +244,85 @@ def test_prefill_chunks_copy_rows_out_of_a_reused_output():
         toks = [int(t) for t in rng.integers(0, CFG.vocab_size, n)]
         entries.append((blocks, toks, cached))
 
-    def run(reuse):
+    def run(reuse, budget):
         cache = PagedKVCache(CFG, 24, BT, dtype=torch.float32, device="cpu")
         step = functools.partial(G.EagerSteps(CFG).prefill, params, cache.k,
                                  cache.v)
         if reuse:
-            eager, out = step, []
+            eager, out = step, {}
 
-            def step(*arrays):            # one output buffer, as a replay
+            def step(*arrays):       # one output buffer a bucket, as a replay
                 h = eager(*arrays)
-                if not out:
-                    out.append(torch.empty_like(h))
-                return out[0].copy_(h)
-        return paged_prefill_chunks(step, cache, entries, chunk=8), cache
+                return out.setdefault(h.shape, torch.empty_like(h)).copy_(h)
+        return paged_prefill_chunks(step, cache, entries, chunk=8,
+                                    budget=budget), cache
 
-    (want, wc), (got, gc) = run(False), run(True)
-    assert want[3] is None and got[3] is None
-    for w, g in zip(want[:3], got[:3]):
-        assert torch.equal(g, w)
-    assert not torch.equal(want[0], want[2])
-    assert torch.equal(wc.k, gc.k) and torch.equal(wc.v, gc.v)
+    # the lock step, then replays of up to 32 positions of the rows left
+    # ((4, 8), then (2, 16))
+    for budget in (None, 32):
+        (want, wc), (got, gc) = run(False, budget), run(True, budget)
+        assert want[3] is None and got[3] is None
+        for w, g in zip(want[:3], got[:3]):
+            assert torch.equal(g, w)
+        assert not torch.equal(want[0], want[2])
+        assert torch.equal(wc.k, gc.k) and torch.equal(wc.v, gc.v)
+
+
+def test_dense_prefill_plan_matches_the_lock_step_plan():
+    """A mixed dense batch (suffixes of 2,000, 100 and 50 tokens, one
+    empty, one of 19 tokens that starts mid-block after a 21-token cached
+    prefix) through the backend's plan and through the MoE archs' 32-token
+    lock step, from the same f32 pools and weights: the same K/V and last
+    hidden rows within f32 rounding, 10 replays against 63 ((4, 64),
+    (2, 128), 7 of (1, 256), the last 16 tokens in a (1, 32)), none over
+    256 positions or carrying a row with no suffix left, and the backend's
+    counters add up to the suffix tokens."""
+    params = M.init_params(CFG, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    entries, o = [], 0
+    for n, cached in ((2000, 0), (100, 0), (50, 0), (8, 8), (40, 21)):
+        nb = -(-n // BT)
+        entries.append((list(range(o, o + nb)), [int(t) for t in (
+            rng.integers(0, CFG.vocab_size, n))], cached))
+        o += nb
+    ecfg = EngineConfig(mode="baseline", gpu_blocks=o + 4, host_blocks=4)
+    runs = []
+    for budget in (PREFILL_TOKENS, None):
+        back = TorchBackend(CFG, ecfg, A100_PCIE, device="cpu",
+                            params=params)
+        gen = torch.Generator().manual_seed(6)
+        for pool in (back.cache.k, back.cache.v):
+            pool.copy_(torch.randn(pool.shape, generator=gen))
+        calls, step = [], back.steps.prefill
+
+        def record(*args, _step=step, _calls=calls):
+            _calls.append([a.copy() for a in args[3:]])
+            return _step(*args)
+        back.steps.prefill = record
+        rows = paged_prefill_chunks(back._prefill_step, back.cache, entries,
+                                    budget=budget)
+        runs.append((back, rows, calls))
+    (plan, got, calls), (lock, want, lock_calls) = runs
+    assert plan.prefill_budget == PREFILL_TOKENS
+    assert got[3] is None and want[3] is None
+    for g, w in zip(got, want):
+        assert g is None or torch.allclose(g, w, atol=1e-5, rtol=1e-5)
+    for a, b in ((plan.cache.k, lock.cache.k), (plan.cache.v, lock.cache.v)):
+        torch.testing.assert_close(a[:, :-1], b[:, :-1], atol=1e-5,
+                                   rtol=1e-5)
+    assert [c[0].shape for c in calls] == [(4, 64), (2, 128)] + [
+        (1, 256)] * 7 + [(1, 32)]
+    assert len(lock_calls) == 63
+    for tok, tables, qpos, wpages, wstart, wcount in calls:
+        bb, c = tok.shape
+        _check_plan(("prefill", bb, c, tables.shape[1], wpages.shape[1]),
+                    qpos)
+        assert tok.size <= PREFILL_TOKENS
+    suffix = sum(len(t) - cached for _, t, cached in entries)
+    assert plan.prefill_replays == 10 and lock.prefill_replays == 63
+    assert plan.prefill_tokens == lock.prefill_tokens == suffix
+    assert plan.prefill_slots == sum(c[0].size for c in calls)
+    assert lock.prefill_slots == 63 * 8 * 32
 
 
 def test_cpu_backend_builds_no_graph():
@@ -392,6 +539,58 @@ def test_replays_equal_the_eager_step_across_buckets(dev):
     other = cache.k.clone()
     with pytest.raises(RuntimeError, match="not the tensors"):
         sg.decode(params, other, cache.v, *calls[0][1])
+
+
+@pytest.mark.gpu
+def test_prefill_plan_replays_equal_the_eager_step(dev):
+    """The dense plan's buckets: a 256-token replay through a 64-page
+    table, (1, 256, 64, 17), and the compacted replays of a mixed batch
+    give the eager step's hidden rows and K/V bit for bit."""
+    params, cache = _small(dev)
+    eager, sg = G.EagerSteps(SMALL), G.StepGraphs(SMALL, dev)
+    rng = np.random.default_rng(4)
+    snap = [p.clone() for p in (cache.k, cache.v)]
+
+    def restore():
+        for p, s in zip((cache.k, cache.v), snap):
+            p.copy_(s)
+
+    args = _prefill_args(rng, cache, 1, 256, 64, 1)
+    want = eager.prefill(params, cache.k, cache.v, *args).clone()
+    want_kv = [p[:, :-1].clone() for p in (cache.k, cache.v)]
+    restore()
+    got = sg.prefill(params, cache.k, cache.v, *args)
+    torch.cuda.synchronize()
+    assert ("prefill", 1, 256, 64, 17) in sg.graphs
+    assert torch.equal(got, want)
+    assert torch.equal(cache.k[:, :-1], want_kv[0])
+    assert torch.equal(cache.v[:, :-1], want_kv[1])
+
+    # suffixes of 700, 100 and 40 tokens, one empty, one mid-block after a
+    # cached prefix: a (4, 64) replay of four rows, a (2, 128) one of two,
+    # then two (1, 256) replays of the long one
+    entries, perm, o = [], rng.permutation(NBLK), 0
+    for n, cached in ((700, 0), (100, 0), (40, 0), (5, 5), (30, 20)):
+        nb = -(-n // BT)
+        entries.append(([int(b) for b in perm[o:o + nb]], [int(t) for t in (
+            rng.integers(0, SMALL.vocab_size, n))], cached))
+        o += nb
+    runs = []
+    for steps in (eager, sg):
+        restore()
+        rows = paged_prefill_chunks(
+            functools.partial(steps.prefill, params, cache.k, cache.v),
+            cache, entries, budget=PREFILL_TOKENS)
+        torch.cuda.synchronize()
+        runs.append((rows, [p[:, :-1].clone() for p in (cache.k, cache.v)]))
+    (want, want_kv), (got, got_kv) = runs
+    assert got[3] is None and want[3] is None
+    for w, g in zip(want, got):
+        assert g is None or torch.equal(g, w)
+    assert all(torch.equal(g, w) for g, w in zip(got_kv, want_kv))
+    assert {k for k in sg.graphs if k[0] == "prefill"} == {
+        ("prefill", 4, 64, 64, 5), ("prefill", 2, 128, 64, 9),
+        ("prefill", 1, 256, 64, 17)}
 
 
 @pytest.mark.gpu

@@ -4,8 +4,8 @@
   records nothing; on, the engine serves the same token ids.
 * On, the decode step's four parts lie inside their ``tc.decode``; a
   batched prefill has one ``tc.prefill.inputs`` / ``tc.prefill.launch``
-  pair per 32-token chunk of its longest suffix; every request prefilled
-  is stamped ``prefill_start`` just before its prefill's span; the
+  pair per replay of its plan, as many as the backend counts; every
+  request prefilled is stamped ``prefill_start`` just before its prefill's span; the
   engine's offloads and a forced ``copy_out`` / ``copy_in`` record the
   ``tc.kv.*`` spans.
 * With ranges on, every span is a ``torch.profiler`` range of its name,
@@ -160,22 +160,34 @@ def test_every_request_is_stamped_as_its_prefill_starts(served):
     assert names["tc.kv.upload.scatter"] >= 2
 
 
-@pytest.mark.parametrize("lengths", [(70, 20), (5,), (32, 33), (64,)])
+# lengths -> (replays, slots) of the dense plan: replays of max(32,
+# 256 // bb) positions a row of the rows whose suffix is left, the lock
+# step's C once none has more than 32 left
+REPLAYS = {(70, 20): (1, 2 * 128), (5,): (1, 8), (32, 33): (1, 2 * 128),
+           (64,): (1, 256), (600, 40): (3, 2 * 128 + 2 * 256)}
+
+
+@pytest.mark.parametrize("lengths", list(REPLAYS))
 def test_one_inputs_and_launch_pair_per_chunk(lengths):
-    back = _backend(gpu_blocks=40)
-    reqs = [_req(f"r{i}", n, range(6 * i, 6 * i + 6), seed=i)
-            for i, n in enumerate(lengths)]
+    back = _backend(gpu_blocks=64)
+    reqs, o = [], 0
+    for i, n in enumerate(lengths):
+        nb = n // 16 + 2
+        reqs.append(_req(f"r{i}", n, range(o, o + nb), seed=i))
+        o += nb
     trace.enable()
     back.decode(reqs)
     trace.disable()
-    chunks = -(-max(lengths) // 32)
+    replays, slots = REPLAYS[lengths]
     names = Counter(n for n, *_ in trace.spans)
-    assert names["tc.prefill.inputs"] == names["tc.prefill.launch"] == chunks
+    assert names["tc.prefill.inputs"] == names["tc.prefill.launch"] \
+        == replays == back.prefill_replays
     assert names["tc.prefill"] == names["tc.prefill.head"] == 1
     assert names["tc.prefill.readback"] == names["tc.decode"] == 1
     (f,) = [f for n, _, _, f in trace.spans if n == "tc.prefill"]
     assert f == {"reqs": len(lengths), "tokens": sum(lengths),
-                 "chunks": chunks}
+                 "replays": replays, "slots": slots}
+    assert (back.prefill_tokens, back.prefill_slots) == (sum(lengths), slots)
     pre = [(a, b) for n, a, b, _ in trace.spans if n == "tc.prefill"][0]
     for n, a, b, _ in trace.spans:
         if n.startswith("tc.prefill."):

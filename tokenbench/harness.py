@@ -144,9 +144,14 @@ def judged(rec, eng, apps, dep, seed):
     return items, n
 
 
-def verdict(gaps: torch.Tensor, lim: dict):
+def verdict(gaps: torch.Tensor, lim: dict, margins=None):
     """``correct`` and the numbers compared, each beside its limit: the
-    widest gap over every judged token, and their count."""
+    widest gap over the judged tokens, and their count. The judged tokens
+    are every token, or, where ``lim`` holds ``route_margin`` and the
+    model is routed, the decided ones: those whose route ``margins`` are
+    at least that at every layer."""
+    if "route_margin" in lim and margins is not None:
+        gaps = gaps[margins >= lim["route_margin"]]
     widest = float(gaps.max()) if len(gaps) else None
     checks = {
         "tokens_judged": {"value": int(len(gaps)),
@@ -158,21 +163,41 @@ def verdict(gaps: torch.Tensor, lim: dict):
     return bool(correct), checks
 
 
-def judge(run, log=print, control: Optional[str] = None):
-    """The verdict on ``run``'s served tokens, or with ``control`` on the
-    tokens that the reference computed at that precision puts first at
-    the same positions."""
+def readings(run, log=print, sides=(None,)):
+    """Of every judged token of ``run``'s sample, the gaps of each side of
+    ``sides`` (``check.gaps``: the served tokens, or the reference computed
+    another way), the reference's route margins (None for a dense model),
+    and per judged request the seconds of the reference's pass."""
     t = time.perf_counter()
-    res = check.gaps(run.shapes, run.params, run.items, control=control)
-    gaps = torch.cat(res) if res else torch.zeros(0)
-    who = f"control {control}" if control else "served tokens"
-    log(f"reference ({who}) over "
+    res = check.gaps(run.shapes, run.params, run.items, sides)
+    gaps = {side: torch.cat([r[side] for r, _, _ in res]) if res
+            else torch.zeros(0) for side in sides}
+    margins = (torch.cat([m for _, m, _ in res])
+               if res and res[0][1] is not None else None)
+    log(f"reference over "
         f"{sum(len(p) + len(g) for p, g in run.items)} positions in "
         f"{time.perf_counter() - t:.1f} s")
-    if len(gaps):
-        top = torch.sort(gaps, descending=True).values[:6]
-        log(f"{who}: widest gaps {[round(float(g), 4) for g in top]}")
-    return verdict(gaps, run.dep["limits"])
+    for side, g in gaps.items():
+        if len(g):
+            top = torch.sort(g, descending=True).values[:6]
+            who = f"{side} reference" if side else "served tokens"
+            log(f"{who}: widest gaps {[round(float(x), 4) for x in top]}")
+    return gaps, margins, [sec for _, _, sec in res]
+
+
+def judge(run, log=print, control: Optional[str] = None):
+    """The verdict on ``run``'s served tokens, or with ``control`` on the
+    tokens that the reference computed that way (``check.VARIANTS``) puts
+    first at the same positions. Near ties, when the cell's limits name
+    a ``route_margin``, are logged and not judged."""
+    gaps, margins, _ = readings(run, log, (control,))
+    gaps, lim = gaps[control], run.dep["limits"]
+    if "route_margin" in lim and margins is not None:
+        tie = gaps[margins < lim["route_margin"]]
+        log(f"near ties (route margin < {lim['route_margin']}): "
+            f"{len(tie)} of {len(gaps)} tokens, widest gap "
+            f"{float(tie.max()) if len(tie) else None}")
+    return verdict(gaps, lim, margins)
 
 
 def run_cell(root: Path, cell_name: str, seed: int, seconds: float,

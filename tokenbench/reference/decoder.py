@@ -13,10 +13,22 @@ dropped), the k expert outputs summed with their gates in float32, and
 the logits in float32. Attention runs over blocks of queries, so no
 (S, S) score matrix exists.
 
+At a routed layer the reference also reads each position's route
+margin: the gap between the float32 router logits of the last expert it
+chose (the k-th largest) and the first it left out (the k+1-th). The
+softmax keeps their order, so the margin says how far the router's
+input would have to move to swap them: a small margin is a near tie,
+which another correct bf16 computation may route the other way.
+
 ``quant="fp8"`` is the control: every bfloat16 product (attention
 projections, experts, dense FFN, head) takes fp8 e4m3 weights, scaled per
 output channel, and fp8 e4m3 inputs, scaled per row, as an fp8 serving
 path would.
+
+``order="splitk"`` is the witness: a second bf16 computation with another
+accumulation order. Every bfloat16 product is two products over the
+halves of its inner dimension, each accumulated in float32, summed in
+float32 and rounded to bfloat16 once.
 """
 from __future__ import annotations
 
@@ -41,17 +53,24 @@ def _fp8(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class Reference:
-    def __init__(self, s: dict, params: dict, quant: Optional[str] = None):
+    def __init__(self, s: dict, params: dict, quant: Optional[str] = None,
+                 order: Optional[str] = None):
         if quant not in (None, "fp8"):
             raise ValueError(f"unknown reference precision {quant!r}")
-        self.s, self.p, self.quant = s, params, quant
+        if order not in (None, "splitk"):
+            raise ValueError(f"unknown accumulation order {order!r}")
+        self.s, self.p, self.quant, self.order = s, params, quant, order
 
     # -- pieces ---------------------------------------------------------------
     def mm(self, x, w):
         """x (..., k) @ w (k, n) in bfloat16 (fp8 operands under the
-        control)."""
+        control; two float32 half-k products under the witness)."""
         if self.quant == "fp8":
             x, w = _fp8(x, -1), _fp8(w, 0)
+        if self.order == "splitk":
+            h = x.shape[-1] // 2
+            return (x[..., :h].float() @ w[:h].float()
+                    + x[..., h:].float() @ w[h:].float()).to(x.dtype)
         return x @ w
 
     @staticmethod
@@ -90,11 +109,15 @@ class Reference:
         return out
 
     def ffn(self, lp, x):
+        """The layer's FFN output, and each position's route margin (None
+        for a dense FFN)."""
         if "we1" not in lp:
             gate = F.silu(self.mm(x, lp["w1"]).float()).to(x.dtype)
-            return self.mm(gate * self.mm(x, lp["w3"]), lp["w2"])
+            return self.mm(gate * self.mm(x, lp["w3"]), lp["w2"]), None
         k = self.s["top_k"]
         logits = x.float() @ lp["wr"]
+        top = torch.topk(logits, k + 1, dim=-1).values
+        margin = top[:, k - 1] - top[:, k]
         probs = torch.softmax(logits, dim=-1)
         gate, idx = torch.topk(probs, k, dim=-1)
         gate = gate / gate.sum(-1, keepdim=True)
@@ -108,18 +131,21 @@ class Reference:
             h = F.silu(self.mm(xe, lp["we1"][e]).float()).to(x.dtype)
             slots[tok, slot] = self.mm(h * self.mm(xe, lp["we3"][e]),
                                        lp["we2"][e]).float()
-        return (slots * gate[..., None]).sum(1).to(x.dtype)
+        return (slots * gate[..., None]).sum(1).to(x.dtype), margin
 
     # -- the whole sequence --------------------------------------------------
     def logits(self, tokens: Sequence[int], rows: Sequence[int]):
         """float32 logits (len(rows), V) at positions ``rows`` of the
-        sequence ``tokens``, each predicting the token after it."""
+        sequence ``tokens``, each predicting the token after it, and the
+        smallest route margin over the layers at each of those positions
+        (len(rows),), None for a dense model."""
         s, p = self.s, self.p
         dev = p["embed"].device
         tok = torch.as_tensor(list(tokens), dtype=torch.long, device=dev)
         pos = torch.arange(tok.numel(), device=dev)
         H, Hkv, D = s["heads"], s["kv_heads"], s["head_dim"]
         h = p["embed"][tok]
+        margin = None
         for i in range(s["layers"]):
             lp = {name: t[i] for name, t in p["layers"].items()}
             xn = self.norm(h, lp["attn_norm"])
@@ -130,9 +156,14 @@ class Reference:
             k = self.rope(k.view(-1, Hkv, D), pos)
             o = self.attention(q, k, v.view(-1, Hkv, D))
             h = h + self.mm(o.reshape(o.shape[0], -1), lp["wo"])
-            h = h + self.ffn(lp, self.norm(h, lp["mlp_norm"]))
+            f, m = self.ffn(lp, self.norm(h, lp["mlp_norm"]))
+            h = h + f
+            if m is not None:
+                margin = m if margin is None else torch.minimum(margin, m)
         rows = torch.as_tensor(list(rows), device=dev)
         hn = self.norm(h[rows], p["final_norm"])
+        if margin is not None:
+            margin = margin[rows]
         if self.quant == "fp8":
-            return self.mm(hn, p["unembed"]).float()
-        return hn.float() @ p["unembed"].float()
+            return self.mm(hn, p["unembed"]).float(), margin
+        return hn.float() @ p["unembed"].float(), margin
